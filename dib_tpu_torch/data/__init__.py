@@ -1,0 +1,18 @@
+"""Dataset registry and the datasets the port has so far.
+
+Importing this package registers every dataset; use
+``dib_tpu_torch.data.get_dataset(name, **kwargs)``.
+"""
+
+from dib_tpu_torch.data.registry import (
+    DatasetBundle,
+    get_dataset,
+    register_dataset,
+)
+from dib_tpu_torch.data import boolean_circuit  # noqa: F401  (registers)
+from dib_tpu_torch.data.boolean_circuit import (
+    PAPER_CIRCUIT,
+    apply_gates,
+    full_truth_table,
+    random_circuit,
+)

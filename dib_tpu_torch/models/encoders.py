@@ -1,0 +1,78 @@
+"""Probabilistic feature encoders (counterpart of ``dib_tpu/models/encoders.py``).
+
+``FeatureEncoderBank`` runs all F per-feature Gaussian encoders as ONE stack
+of batched matmuls over stacked ``[F, in, out]`` weights, with no Python loop
+over features. Ragged features are zero-padded to a common width, which is
+exact: sin(0) = 0 keeps the positional encoding zero on padding, and
+first-layer weights that multiply zeros contribute nothing.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dib_tpu_torch.models.mlp import MLP
+from dib_tpu_torch.ops.posenc import (
+    positional_encoding,
+    positional_encoding_frequencies,
+    posenc_output_dim,
+)
+
+
+def pad_and_stack_features(x: torch.Tensor, feature_dimensionalities: Sequence[int]) -> torch.Tensor:
+    """Split [B, sum(dims)] into per-feature blocks, zero-pad to the max width,
+    and stack to [F, B, max_dim] (feature-major)."""
+    dims = list(feature_dimensionalities)
+    max_dim = max(dims)
+    if min(dims) == max_dim:   # equal widths: a view, no copies
+        return x.unflatten(-1, (len(dims), max_dim)).movedim(-2, 0)
+    blocks = torch.split(x, dims, dim=-1)
+    return torch.stack([F.pad(b, (0, max_dim - d)) for b, d in zip(blocks, dims)], dim=0)
+
+
+class FeatureEncoderBank(nn.Module):
+    """All per-feature Gaussian encoders (positional encoding + MLP ->
+    (mu, logvar)) as one batched module.
+
+    Input: [B, sum(feature_dimensionalities)] concatenated features.
+    Output: (mus, logvars), each [F, B, embedding_dim] and contiguous.
+    ``logvar_offset`` shifts the predicted log-variances after the split.
+    """
+
+    def __init__(self, feature_dimensionalities: Sequence[int],
+                 hidden: Sequence[int] = (128, 128), embedding_dim: int = 32,
+                 num_posenc_frequencies: int = 4,
+                 activation: str | Callable | None = "relu", logvar_offset: float = 0.0,
+                 use_positional_encoding: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.feature_dimensionalities = tuple(int(d) for d in feature_dimensionalities)
+        self.embedding_dim = embedding_dim
+        self.logvar_offset = float(logvar_offset)
+        nfreq = num_posenc_frequencies if use_positional_encoding else 0
+        self.register_buffer(
+            "frequencies",
+            torch.from_numpy(positional_encoding_frequencies(nfreq)),
+            persistent=False)
+        max_dim = max(self.feature_dimensionalities)
+        self.mlp = MLP(posenc_output_dim(max_dim, nfreq), hidden, 2 * embedding_dim,
+                       activation, stack=len(self.feature_dimensionalities),
+                       generator=generator)
+
+    def _split(self, out: torch.Tensor):
+        d = self.embedding_dim
+        return out[..., :d].contiguous(), out[..., d:] + self.logvar_offset
+
+    def forward(self, x: torch.Tensor):
+        stacked = pad_and_stack_features(x, self.feature_dimensionalities)   # [F, B, maxd]
+        return self._split(self.mlp(positional_encoding(stacked, self.frequencies)))
+
+    def encode_single(self, feature_index: int, x_feature: torch.Tensor):
+        """Run one feature's encoder on raw single-feature data [B, dim_i]."""
+        pad = max(self.feature_dimensionalities) - self.feature_dimensionalities[feature_index]
+        h = positional_encoding(F.pad(x_feature, (0, pad)), self.frequencies)
+        return self._split(self.mlp(h, member=feature_index))

@@ -1,0 +1,136 @@
+"""One-pass MI-sandwich row statistics: the CUDA kernel and its plain version.
+
+The sandwich bounds consume only three per-row reductions of the [N, M]
+log-density matrix ``log p(u_i | x_j)``: the diagonal entry, the logsumexp
+over the full row and the logsumexp over the off-diagonal entries (the LOO
+bound excludes the diagonal but still divides by B). The kernel in
+``csrc/mi_row_stats.cu`` computes all three in one pass without ever forming
+the matrix.
+
+Replaces: ``dib_tpu/ops/pallas_density.py::_row_stats_kernel`` (through
+``mi_row_stats_pallas``), both its square mode (``diagonal=True``) and its
+probe mode (``diagonal=False``, an asymmetric [M probes, N data] input where
+only the full-row reduction exists).
+
+Bound on an H100: operations, not bytes. Each (row, column) pair costs about
+4d f32 operations on the CUDA cores (direct difference, scale,
+square-accumulate; tensor cores cannot form a direct difference) plus two
+exps, against O((N + M) d) bytes per group. The design therefore keeps u in
+registers, stages column tiles in shared memory read as warp broadcasts, and
+runs the whole column loop inside one block so no state crosses blocks; see
+the source note in the ``.cu`` file.
+
+``mi_row_stats`` takes the plain PyTorch version only for CPU tensors; a CUDA
+tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from dib_tpu_torch.ops import _build
+from dib_tpu_torch.ops.gaussian import gaussian_log_density_mat
+
+NEG_INF = -1e30   # large-finite mask value: inf - inf would give NaN
+MAX_DIM = 64      # widest channel the kernel's register tile holds
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Kernel launches made by ``mi_row_stats``; the plain version never counts.
+mi_row_stats_launches = 0
+
+
+def mi_row_stats_reference(u: torch.Tensor, mus: torch.Tensor, logvars: torch.Tensor,
+                           diagonal: bool = True):
+    """Plain PyTorch version of the kernel: forms the matrix and reduces it.
+
+    Same contract as :func:`mi_row_stats`; always computes in float32.
+    """
+    u, mus, logvars = u.float(), mus.float(), logvars.float()
+    log_p = gaussian_log_density_mat(u, mus, logvars)             # [..., N, M]
+    full = torch.logsumexp(log_p, dim=-1)
+    if not diagonal:
+        return full, full, full
+    n = log_p.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=log_p.device)
+    diag = torch.diagonal(log_p, dim1=-2, dim2=-1)
+    off = torch.logsumexp(log_p.masked_fill(eye, NEG_INF), dim=-1)
+    return diag, full, off
+
+
+def mi_row_stats(u: torch.Tensor, mus: torch.Tensor, logvars: torch.Tensor,
+                 diagonal: bool = True):
+    """Per-row sandwich statistics ``(diag, lse_full, lse_off)``, float32.
+
+    ``u`` is [N, d] or [G, N, d]; ``mus``/``logvars`` [M, d] or [G, M, d]
+    with the same leading group axis G (the features), so one launch covers
+    every group. Each output is [N] or [G, N]:
+
+      - ``diag[i]``     = log p(u_i | x_i)          (``diagonal=True``, N == M)
+      - ``lse_full[i]`` = logsumexp_j log p(u_i | x_j)
+      - ``lse_off[i]``  = logsumexp_{j != i} log p(u_i | x_j)
+
+    With ``diagonal=False`` only the full-row reduction is computed and it is
+    returned three times. Inputs of float32 or bfloat16 accumulate in
+    float32. Masked entries are the large-finite ``NEG_INF``, so a row with
+    every entry masked (the off-diagonal of N = 1) comes back as ``NEG_INF``.
+    """
+    grouped = u.dim() == 3
+    if not grouped:
+        u, mus, logvars = u[None], mus[None], logvars[None]
+    if u.dim() != 3 or mus.dim() != 3 or mus.shape != logvars.shape:
+        raise ValueError(f"expected u [G,N,d], mus/logvars [G,M,d]; got "
+                         f"{tuple(u.shape)}, {tuple(mus.shape)}, {tuple(logvars.shape)}")
+    if u.shape[0] != mus.shape[0] or u.shape[2] != mus.shape[2]:
+        raise ValueError(f"group or channel axes differ: {tuple(u.shape)} vs {tuple(mus.shape)}")
+    if diagonal and u.shape[1] != mus.shape[1]:
+        raise ValueError(f"square mode needs N == M, got {u.shape[1]} and {mus.shape[1]}")
+    if not (u.device == mus.device == logvars.device):
+        raise ValueError("u, mus and logvars must be on one device")
+    if u.device.type == "cpu":
+        out = mi_row_stats_reference(u, mus, logvars, diagonal)
+    elif u.device.type == "cuda":
+        out = _launch(u, mus, logvars, diagonal)
+    else:
+        raise ValueError(f"mi_row_stats runs on cpu or cuda tensors, not {u.device.type}")
+    return out if grouped else tuple(o[0] for o in out)
+
+
+@functools.cache
+def _kernel_entry():
+    """The C entry point ``mi_row_stats_launch``, built and typed on first use."""
+    fn = _build.load("mi_row_stats").mi_row_stats_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(u, mus, logvars, diagonal: bool):
+    global mi_row_stats_launches
+    g, n, d = u.shape
+    m = mus.shape[1]
+    if not (u.dtype == mus.dtype == logvars.dtype) or u.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes float32 or bfloat16 inputs of one type, got "
+                        f"{u.dtype}, {mus.dtype}, {logvars.dtype}")
+    if not (u.is_contiguous() and mus.is_contiguous() and logvars.is_contiguous()):
+        raise ValueError("the kernel takes contiguous inputs")
+    if d > MAX_DIM:
+        raise ValueError(f"the kernel supports d <= {MAX_DIM}, got d = {d}")
+    if not 1 <= g <= 65535 or n == 0 or m == 0:
+        raise ValueError(f"the kernel needs 1 <= G <= 65535 and non-empty rows, got "
+                         f"G={g}, N={n}, M={m}")
+    full = torch.empty((g, n), dtype=torch.float32, device=u.device)
+    diag = torch.empty_like(full) if diagonal else None
+    off = torch.empty_like(full) if diagonal else None
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = _kernel_entry()(
+        u.data_ptr(), mus.data_ptr(), logvars.data_ptr(),
+        diag.data_ptr() if diagonal else None, full.data_ptr(),
+        off.data_ptr() if diagonal else None,
+        g, n, m, d, _DTYPE_CODES[u.dtype], int(diagonal), u.device.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"mi_row_stats kernel launch failed with CUDA error {err}")
+    mi_row_stats_launches += 1
+    return (diag, full, off) if diagonal else (full, full, full)
