@@ -9,23 +9,36 @@ CUDA toolkit:
 Phases (any failure exits nonzero; nothing is caught and continued):
 
   1. print the card's name and power limit; switch TF32 off
-  2. build every CUDA kernel from ``dib_tpu_torch/csrc`` (one nvcc per source)
-  3. hold each kernel against its plain PyTorch version on the card
-  4. serve: the flagship boolean-circuit model at full width behind an
-     ``InferenceEngine`` and a ``MicroBatcher``, fed by client threads
-  5. the per-channel MI query ``all_features_bounds`` on the validation rows
-     (phases 4-5 are the main path; kernel launch counts are read around it),
-     checked against the plain path on the same draws
-  6. CUDA-event timings of the kernel, its plain version, the MI query and
-     ``predict`` at each bucket, beside the kernel's roofline bound
-  7. one JSON line listing each ported kernel
-  8. the last line: ``{"ok": true, "device": {...}}``
+  2. build every CUDA kernel from ``dib_tpu_torch/csrc`` (one nvcc per
+     source, all started together)
+  3. hold each kernel against its plain PyTorch version on the card, at the
+     shapes the main paths give it, and the flash kernel's gradients
+  4. main path 1, serving: the flagship boolean-circuit model at full width
+     behind an ``InferenceEngine`` and a ``MicroBatcher``, fed by client
+     threads, then the per-channel MI query ``all_features_bounds``
+     (launch counts read around the path), checked against the plain path
+  5. main path 2, training: the amorphous per-particle set-transformer
+     flagship (1,293,505 parameters) at full width, every attention call
+     through the flash kernel, the per-particle MI bounds through
+     ``mi_row_stats`` (launch counts read around ``fit``); the only cut is
+     the number of steps
+  6. one training step on the flash path against the dense path, from the
+     same weights, batch and noise; and on that step's own inputs, each
+     block's flash q/k/v gradients against float64
+  7. the automatic regime: a full-width set transformer on a set of 1024
+     launches the kernel with no flag set
+  8. CUDA-event timings of the kernels, their plain versions and the
+     library call beside their bounds; the MI query, predict, the training
+     step (flash and dense) and the MI hook; profiler breakdowns
+  9. one JSON line listing each ported kernel
+ 10. the last line: ``{"ok": true, "device": {...}}``
 
 Without a CUDA device it exits nonzero before printing any result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -42,11 +55,18 @@ import torch
 SEED = 0
 F32_TOL = 2e-5            # kernel vs plain, float32 inputs
 BF16_TOL = 2e-2           # kernel vs plain, bfloat16 inputs
+GRAD_TOL = 1e-4           # flash gradients, and scores scaled by 100
 SERVE_TOL = 1e-6          # batched vs direct dispatch
 BOUNDS_TOL = 1e-4         # nats per feature, kernel path vs plain path
+PATH_TOL = 1e-4           # flash vs dense training step, relative to the gradient's norm
+NOISE_MULT = 10           # flash attention gradients: error against float64, x dense's error
+ATTN_FLOOR = 1e-5         # ... plus this share of the gradient's norm
 EVAL_BATCH, EVAL_BATCHES = 1024, 8
-# H100 SXM published peaks: f32 on the CUDA cores, HBM3 bandwidth
+TRAIN_STEPS, STEPS_PER_EPOCH, EVAL_EVERY = 40, 10, 10   # cut from 25,000 steps
+# H100 SXM published peaks: f32 on the CUDA cores, dense bf16 tensor cores,
+# HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -88,6 +108,11 @@ def channel_inputs(gen, g, n, d, dtype=torch.float32, m=None, probe=False):
     return u.to(dtype), mus.to(dtype), lv.to(dtype)
 
 
+def attention_inputs(gen, b, s, h, d, dtype=torch.float32, scale=1.0):
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda") for _ in range(3))
+    return (q * scale).to(dtype), (k * scale).to(dtype), v.to(dtype)
+
+
 def time_ms(fn, runs: int = 20, inner: int = 1, warmup: int = 3) -> float:
     """Median over ``runs`` of CUDA-event time per call (``inner`` calls per run)."""
     for _ in range(warmup):
@@ -106,10 +131,31 @@ def time_ms(fn, runs: int = 20, inner: int = 1, warmup: int = 3) -> float:
     return statistics.median(samples)
 
 
-def profile_breakdown(fn, top: int = 6) -> str:
+def host_ms(fns: dict, runs: int = 10, warmup: int = 2) -> dict:
+    """Median host-clock ms of each call, ending in a synchronise; the calls
+    are taken in turns so that drift of the card touches all alike."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    samples = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(s) for name, s in samples.items()}
+
+
+def profile_breakdown(fn, top: int = 6, unprofiled_ms: float | None = None) -> str:
     """Device time of one warm call of ``fn`` by kernel, from torch.profiler:
-    the device's busy share of the call's wall time and the largest kernels.
+    the sum over device-side kernel events only (an op or a range that
+    launched a kernel carries the same time again, and is not counted), its
+    share of the profiled call's wall time and, given ``unprofiled_ms``, of
+    the call's time without the profiler; then the largest kernels.
     "not measured" when the profiler sees no device activity."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -119,65 +165,66 @@ def profile_breakdown(fn, top: int = 6) -> str:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+               and e.self_device_time_total > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         return "not measured (no device activity recorded)"
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     parts = [f"{e.key[:60]} {e.self_device_time_total:.1f} us x{e.count}" for e in kernels[:top]]
-    return (f"wall {wall_us:.1f} us (profiled), device busy {busy_us:.1f} us "
-            f"({busy_us / wall_us:.1%}); " + "; ".join(parts))
+    share = "" if unprofiled_ms is None else \
+        f", {busy_us / (unprofiled_ms * 1e3):.1%} of the unprofiled {unprofiled_ms:.4f} ms"
+    return (f"wall {wall_us:.1f} us (profiled), device kernels {busy_us:.1f} us in "
+            f"{sum(e.count for e in kernels)} launches ({busy_us / wall_us:.1%} of it{share}); "
+            + "; ".join(parts))
 
 
-def row_stats_bound_ms(g, n, m, d, itemsize, diagonal=True):
-    """Least time for the row statistics on an H100: the larger of the f32
-    operations over the f32 peak and the bytes (inputs once, outputs once)
-    over HBM bandwidth. Per (row, column) pair: 4 per channel dim
-    (difference, scale, square-accumulate as an FMA) plus the normaliser
-    (2) and, per reduction, max, subtract, exp and add (4)."""
-    reductions = 2 if diagonal else 1
-    ops = g * n * m * (4 * d + 2 + 4 * reductions)
-    nbytes = (g * n * d + 2 * g * m * d) * itemsize + (3 if diagonal else 1) * g * n * 4
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(ops, nbytes, peak_flops):
+    """Least time on an H100 (ms) and what sets it."""
+    t_ops, t_bytes = ops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    from dib_tpu_torch.data import get_dataset
-    from dib_tpu_torch.models import DistributedIBModel
-    from dib_tpu_torch.ops import _build, density
-    from dib_tpu_torch.ops.gaussian import reparameterize
-    from dib_tpu_torch.ops.info_bounds import sandwich_from_row_stats
-    from dib_tpu_torch.serve import InferenceEngine, MicroBatcher
-    from dib_tpu_torch.train.hooks import all_features_bounds
+def row_stats_bound_ms(g, n, m, d, itemsize, diagonal=True):
+    """The row statistics: per (row, column) pair 4 f32 operations per
+    channel dim (difference, scale, square-accumulate as an FMA) plus the
+    normaliser (2) and, per reduction, max, subtract, exp and add (4); the
+    inputs read once and the outputs written once."""
+    reductions = 2 if diagonal else 1
+    ops = g * n * m * (4 * d + 2 + 4 * reductions)
+    nbytes = (g * n * d + 2 * g * m * d) * itemsize + (3 if diagonal else 1) * g * n * 4
+    return bound(ops, nbytes, PEAK_F32_FLOPS)
 
-    # ---- 1. card -------------------------------------------------------
-    card = card_line()
-    print(card)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
-    # ---- 2. build ------------------------------------------------------
-    t0 = time.perf_counter()
-    paths = _build.build(["mi_row_stats"])
-    print(f"build: {time.perf_counter() - t0:.2f} s for {len(paths)} kernel source(s)")
+def flash_bound_ms(b, s, h, d, dtype):
+    """Attention: 4 B H S^2 D operations (the q.k and p.v products) at the
+    peak of the input type; q, k, v read once and the f32 output written once."""
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    return bound(4 * b * h * s * s * d, 3 * b * s * h * d * itemsize + b * s * h * d * 4, peak)
+
+
+def print_registers(path):
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if os.path.exists(cuobjdump):
-        res = subprocess.run([cuobjdump, "-res-usage", str(paths["mi_row_stats"])],
+        res = subprocess.run([cuobjdump, "-res-usage", str(path)],
                              capture_output=True, text=True, timeout=60)
         for line in res.stdout.splitlines():
             if "REG" in line or "Function" in line:
                 print("  " + line.strip())
 
-    # ---- 3. kernels vs plain versions on the card ----------------------
+
+# --------------------------------------------------------------------------
+# phase 3: the kernels against their plain versions
+
+def check_row_stats():
+    from dib_tpu_torch.ops import density
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [
         ("square G=10 N=1024 d=32 f32", channel_inputs(gen, 10, 1024, 32), True, F32_TOL),
+        ("square G=50 N=1024 d=32 f32", channel_inputs(gen, 50, 1024, 32), True, F32_TOL),
         ("ragged G=3 N=1000 d=37 f32", channel_inputs(gen, 3, 1000, 37), True, F32_TOL),
         ("single row G=2 N=1 d=32 f32", channel_inputs(gen, 2, 1, 32), True, F32_TOL),
         ("square G=10 N=1024 d=32 bf16",
@@ -190,11 +237,59 @@ def main() -> int:
         torch.cuda.synchronize()
         want = density.mi_row_stats_reference(u, mus, lv, diagonal=diagonal)
         compare(f"mi_row_stats {name}", got, want, tol)
-    single = density.mi_row_stats(*cases[2][1])
+    single = density.mi_row_stats(*cases[3][1])
     if not bool((single[2] == density.NEG_INF).all()):
         fail("N=1 off-diagonal row is not the large-finite mask value")
+    return cases[5][1]
 
-    # ---- 4-5. main path: serve, then the MI query ----------------------
+
+def check_flash():
+    from dib_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases = [
+        ("flagship B=32 S=50 H=12 D=128 f32", attention_inputs(gen, 32, 50, 12, 128), F32_TOL),
+        ("validation B=307 S=50 H=12 D=128 f32",
+         attention_inputs(gen, 307, 50, 12, 128), F32_TOL),
+        ("B=4 S=1024 H=12 D=128 f32", attention_inputs(gen, 4, 1024, 12, 128), F32_TOL),
+        ("ragged B=4 S=37 H=12 D=128 f32", attention_inputs(gen, 4, 37, 12, 128), F32_TOL),
+        ("single key B=4 S=1 H=12 D=128 f32", attention_inputs(gen, 4, 1, 12, 128), F32_TOL),
+        ("B=4 S=1024 H=12 D=128 bf16",
+         attention_inputs(gen, 4, 1024, 12, 128, torch.bfloat16), BF16_TOL),
+        ("q, k x 100 B=4 S=64 H=12 D=128 f32",
+         attention_inputs(gen, 4, 64, 12, 128, scale=100.0), GRAD_TOL),
+    ]
+    errors = {}
+    for name, (q, k, v), tol in cases:
+        got = attention.flash_self_attention(q, k, v)
+        torch.cuda.synchronize()
+        errors[name] = compare(f"flash_attention {name}", [got],
+                               [attention.flash_self_attention_reference(q, k, v)], tol)
+    # gradients: the autograd function (kernel forward, blocked recompute
+    # backward) against autograd through the plain version
+    q, k, v = (t.requires_grad_() for t in attention_inputs(gen, 4, 1024, 12, 128))
+    attention.flash_self_attention(q, k, v).square().sum().backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    attention.flash_self_attention_reference(q, k, v).square().sum().backward()
+    compare("flash_attention gradients dq, dk, dv B=4 S=1024 H=12 D=128 f32", got,
+            [t.grad for t in (q, k, v)], GRAD_TOL)
+    return errors[cases[0][0]]
+
+
+# --------------------------------------------------------------------------
+# phase 4: main path 1, serving and the MI query
+
+def serve_and_query():
+    from dib_tpu_torch.data import get_dataset
+    from dib_tpu_torch.models import DistributedIBModel
+    from dib_tpu_torch.ops import attention, density
+    from dib_tpu_torch.ops.gaussian import reparameterize
+    from dib_tpu_torch.ops.info_bounds import sandwich_from_row_stats
+    from dib_tpu_torch.serve import InferenceEngine, MicroBatcher
+    from dib_tpu_torch.train.hooks import all_features_bounds
+
     bundle = get_dataset("boolean_circuit")
     model = DistributedIBModel(
         bundle.feature_dimensionalities, output_dim=bundle.output_dimensionality,
@@ -205,6 +300,7 @@ def main() -> int:
     rows_np = np.asarray(bundle.x_valid, np.float32)
 
     density.mi_row_stats_launches = 0
+    attention.flash_attention_launches = 0
     batcher = MicroBatcher(engine, max_batch=32, max_wait_ms=2.0)
     rng = np.random.default_rng(SEED)
     requests = [rows_np[rng.integers(0, len(rows_np), size=int(rng.integers(1, 9)))]
@@ -236,8 +332,9 @@ def main() -> int:
     lower, upper = all_features_bounds(model, rows_np, EVAL_BATCH, EVAL_BATCHES,
                                        generator=mi_gen)
     torch.cuda.synchronize()
-    launches = {"mi_row_stats": density.mi_row_stats_launches}
-    print(f"main path launches: {json.dumps(launches)}")
+    launches = {"mi_row_stats": density.mi_row_stats_launches,
+                "flash_attention": attention.flash_attention_launches}
+    print(f"main path launches (serve + MI query): {json.dumps(launches)}")
     if launches["mi_row_stats"] < EVAL_BATCHES:
         fail(f"mi_row_stats launched {launches['mi_row_stats']} times in the MI "
              f"query, expected one per eval batch ({EVAL_BATCHES})")
@@ -292,10 +389,316 @@ def main() -> int:
           f"lower(nats)={[round(v, 5) for v in lower.tolist()]} "
           f"upper(nats)={[round(v, 5) for v in upper.tolist()]} "
           f"kernel vs plain max_abs_err={mi_err:.3e} tol={BOUNDS_TOL}")
+    return dict(model=model, engine=engine, rows=rows, rows_np=rows_np, mi_gen=mi_gen,
+                stats_in=stats_in, launches=launches)
 
-    # ---- 6. timings ----------------------------------------------------
-    u, mus, lv = stats_in[-1]
-    u, mus, lv = u.contiguous(), mus.contiguous(), lv.contiguous()
+
+# --------------------------------------------------------------------------
+# phase 5: main path 2, training the per-particle flagship
+
+def train_flagship():
+    from dib_tpu_torch.data import get_dataset
+    from dib_tpu_torch.ops import attention, density
+    from dib_tpu_torch.ops.schedules import log_annealed_beta
+    from dib_tpu_torch.train import DIBTrainer, Every, InfoPerFeatureHook
+    from dib_tpu_torch.workloads import AmorphousWorkloadConfig, build_model
+
+    config = AmorphousWorkloadConfig()
+    run = dataclasses.replace(config, num_steps=TRAIN_STEPS, eval_every=EVAL_EVERY)
+    train_config = run.train_config(STEPS_PER_EPOCH)
+    bundle = get_dataset("amorphous_particles")
+    model = build_model(config, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                        use_flash=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model: PerParticleDIBModel P={model.num_particles} blocks=6 heads=12 key_dim=128 "
+          f"params={n_params}; data {bundle.extras['source']} "
+          f"train={bundle.x_train.shape[0]} valid={bundle.x_valid.shape[0]}; "
+          f"cut: num_steps {config.num_steps} -> {TRAIN_STEPS} "
+          f"({train_config.num_epochs} epochs x {STEPS_PER_EPOCH} steps), nothing else")
+    if n_params != 1_293_505:
+        fail(f"the flagship has {n_params} parameters, expected 1,293,505")
+    trainer = DIBTrainer(model, bundle, train_config)
+    hook = InfoPerFeatureHook(config.mi_eval_batch_size, config.mi_eval_batches, seed=SEED)
+    cadence = max(run.eval_every // STEPS_PER_EPOCH, 1)
+
+    density.mi_row_stats_launches = 0
+    attention.flash_attention_launches = 0
+    t0 = time.perf_counter()
+    state, history = trainer.fit(torch.Generator(device="cuda").manual_seed(SEED),
+                                 hooks=[Every(cadence, hook)], hook_every=cadence)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {"mi_row_stats": density.mi_row_stats_launches,
+                "flash_attention": attention.flash_attention_launches}
+    print(f"main path launches (training, {TRAIN_STEPS} steps, {train_config.num_epochs} "
+          f"validation passes, {len(hook.records)} MI hook calls): {json.dumps(launches)}")
+    blocks = len(model.aggregator.blocks)
+    want_flash = blocks * (TRAIN_STEPS + train_config.num_epochs)
+    if launches["flash_attention"] < want_flash:
+        fail(f"flash_attention launched {launches['flash_attention']} times in training, "
+             f"expected {blocks} per step and per validation pass ({want_flash})")
+    if not hook.records or launches["mi_row_stats"] < config.mi_eval_batches * len(hook.records):
+        fail(f"mi_row_stats launched {launches['mi_row_stats']} times for "
+             f"{len(hook.records)} MI hook calls, expected {config.mi_eval_batches} per call")
+
+    for name in ("loss", "val_loss", "metric", "val_metric", "kl_per_feature"):
+        if not np.isfinite(getattr(history, name)).all():
+            fail(f"training: non-finite {name}")
+    epochs = np.arange(train_config.num_epochs)
+    want_beta = log_annealed_beta(torch.from_numpy(epochs), train_config.beta_start,
+                                  train_config.beta_end, train_config.num_annealing_epochs,
+                                  train_config.num_pretraining_epochs).numpy()
+    if not np.array_equal(history.beta, want_beta) or not (np.diff(history.beta) > 0).all():
+        fail(f"training: beta {history.beta} does not follow the log ramp {want_beta}")
+    bounds = np.asarray([r["bounds"] for r in hook.records])        # [T, P, 2] nats
+    if bounds.shape != (len(hook.records), model.num_particles, 2) or \
+            not np.isfinite(bounds).all():
+        fail(f"training: MI bounds of shape {bounds.shape} or non-finite")
+    if not (bounds[..., 0] <= bounds[..., 1] + BOUNDS_TOL).all():
+        fail("training: a per-particle lower bound exceeds its upper bound")
+    if not (bounds[..., 0] <= math.log(config.mi_eval_batch_size) + BOUNDS_TOL).all():
+        fail("training: a per-particle InfoNCE lower bound exceeds log(batch)")
+    print(f"training: {TRAIN_STEPS} steps in {train_s:.3f} s (first call, kernels built); "
+          f"beta {history.beta.tolist()}; loss {history.loss.tolist()}; "
+          f"val_loss {history.val_loss.tolist()}; total KL (nats) "
+          f"{history.total_kl.tolist()}; MI hook at epochs {hook.epochs.tolist()}: "
+          f"mean lower {bounds[..., 0].mean(-1).tolist()} mean upper "
+          f"{bounds[..., 1].mean(-1).tolist()} nats over {model.num_particles} particles")
+    return dict(config=config, train_config=train_config, bundle=bundle, trainer=trainer,
+                state=state, hook=hook, launches=launches)
+
+
+# --------------------------------------------------------------------------
+# phase 6: one step on the flash path against the dense path
+
+def exact_attention(q, k, v):
+    """Softmax attention in float64, the reference both float32 recipes are
+    measured against."""
+    q, k, v = q.double(), k.double(), v.double()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1), v)
+
+
+def capture_attention(model):
+    """Records, for each block of ``model`` in its next forward and backward,
+    a copy of the attention module as it was (weights before the optimizer
+    step), the module's input and the gradient of its output. Returns the
+    list it fills and the hook handles."""
+    import copy
+
+    records, handles = [], []
+
+    def forward_hook(module, inputs, output):
+        record = [copy.deepcopy(module), inputs[0].detach()]
+        records.append(record)
+        output.register_hook(lambda grad: record.append(grad.detach()))
+
+    for block in model.aggregator.blocks:
+        handles.append(block.attention.register_forward_hook(forward_hook))
+    return records, handles
+
+
+def hold_attention_gradients(records):
+    """Holds the flash attention's q, k and v gradients to float64 on each
+    block's own inputs from the training step: its q, k, v and the gradient
+    that reached its attention core. The error of each must stay within
+    NOISE_MULT times the dense recipe's own error (also against float64)
+    plus ATTN_FLOOR of the gradient's norm. Block 0's softmax is nearly
+    one-hot, and there every float32 recipe misses dq and dk by far more
+    than elsewhere; the other blocks see post-LayerNorm inputs with scores
+    of standard deviation near 1."""
+    from dib_tpu_torch.ops import attention
+
+    recipes = (("flash", attention.flash_self_attention, torch.float32),
+               ("dense", attention.dense_self_attention, torch.float32),
+               ("exact", exact_attention, torch.float64))
+    lines = []
+    for i, (module, u, d_out) in enumerate(records):
+        with torch.no_grad():
+            q, k, v = module.query(u), module.key(u), module.value(u)
+            d_core = torch.einsum("bso,hdo->bshd", d_out, module.out.kernel)
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+            max_p = torch.softmax(scores, -1).amax(-1).mean().item()
+        grads = {}
+        for name, fn, dtype in recipes:
+            leaves = [t.to(dtype).clone().requires_grad_() for t in (q, k, v)]
+            fn(*leaves).backward(d_core.to(torch.float64 if name == "exact" else torch.float32))
+            grads[name] = [leaf.grad.double() for leaf in leaves]
+        errs = []
+        for j, tensor in enumerate("qkv"):
+            exact = grads["exact"][j]
+            scale = exact.norm().item()
+            err_flash = (grads["flash"][j] - exact).norm().item() / scale
+            err_dense = (grads["dense"][j] - exact).norm().item() / scale
+            if err_flash > NOISE_MULT * err_dense + ATTN_FLOOR:
+                fail(f"block {i}: flash d{tensor} misses float64 by {err_flash:.3e} of its norm, "
+                     f"dense by {err_dense:.3e}; limit {NOISE_MULT} x dense + {ATTN_FLOOR}")
+            errs.append(f"d{tensor} {err_flash:.2e}/{err_dense:.2e}")
+        lines.append(f"block {i} (score std {scores.std().item():.3g}, max p {max_p:.3f}): "
+                     + " ".join(errs))
+    print(f"check flash attention gradients on the training step's own inputs, error of "
+          f"flash/dense against float64 (of the norm), tol {NOISE_MULT} x dense + "
+          f"{ATTN_FLOOR}: " + "; ".join(lines))
+
+
+def compare_paths(flagship):
+    """One training step through the flash kernel against one through the
+    dense attention, from the same weights, batch and noise.
+
+    The whole step is held by its loss, KL and gradient against the
+    gradient's norm: per leaf it cannot be, because the model's ReLUs make
+    the gradient jump where a pre-activation crosses zero, and a last-bit
+    difference between two recipes' forwards can flip a unit (of the kernel
+    path's forward and its plain version alike). The kernel path's own
+    gradients are held per tensor at the attention core of every block
+    (``hold_attention_gradients``), on the inputs this step gave it."""
+    from dib_tpu_torch.ops import attention
+    from dib_tpu_torch.train import DIBTrainer
+    from dib_tpu_torch.workloads import build_model
+
+    config, train_config = flagship["config"], flagship["train_config"]
+    flash_model = build_model(config, device="cuda", use_flash=True,
+                              generator=torch.Generator().manual_seed(SEED + 2))
+    dense_model = build_model(config, device="cuda", use_flash=False,
+                              generator=torch.Generator().manual_seed(SEED + 2))
+    dense_model.load_state_dict(flash_model.state_dict())
+    bundle, batch = flagship["bundle"], train_config.batch_size
+    x = torch.as_tensor(bundle.x_train[:batch], device="cuda")
+    y = torch.as_tensor(bundle.y_train[:batch], device="cuda")
+    eps = torch.randn(flash_model.noise_shape(train_config.batch_size),
+                      generator=torch.Generator(device="cuda").manual_seed(SEED + 2),
+                      device="cuda")
+    beta = train_config.beta_start
+    steps = {}
+    records, handles = capture_attention(flash_model)
+    for name, model in (("flash", flash_model), ("dense", dense_model)):
+        trainer = DIBTrainer(model, bundle, train_config)
+        state, _ = trainer.init()
+        before = attention.flash_attention_launches
+        stats = trainer.train_step(state, x, y, beta, eps)
+        torch.cuda.synchronize()
+        launched = attention.flash_attention_launches - before
+        if launched != (len(model.aggregator.blocks) if name == "flash" else 0):
+            fail(f"{name} training step launched the flash kernel {launched} times")
+        steps[name] = (trainer, state, stats,
+                       {n: p.grad.detach().clone() for n, p in model.named_parameters()})
+    for handle in handles:
+        handle.remove()
+    (_, _, fs, fg), (_, _, ds, dg) = steps["flash"], steps["dense"]
+    loss_err = max(abs(fs["task"].item() - ds["task"].item()),
+                   (fs["kl"] - ds["kl"]).abs().max().item())
+    scale = torch.sqrt(sum(g.square().sum() for g in dg.values())).item()
+    diffs = {n: (fg[n] - g).norm().item() for n, g in dg.items()}
+    worst = max(diffs, key=diffs.get)
+    if diffs[worst] > PATH_TOL * scale:
+        fail(f"flash vs dense step: gradient {worst} differs by {diffs[worst]:.3e}, "
+             f"above {PATH_TOL} of the gradient's norm {scale:.3e}")
+    if loss_err > PATH_TOL * max(1.0, abs(ds["task"].item())):
+        fail(f"flash vs dense step: task loss or KL differ by {loss_err:.3e}")
+    total = math.sqrt(sum(d * d for d in diffs.values()))
+    print(f"check training step flash vs dense (same weights, batch, noise): task "
+          f"{fs['task'].item():.7f} vs {ds['task'].item():.7f}, loss/KL max_abs_err "
+          f"{loss_err:.3e}; gradient norm {scale:.4e}, difference {total:.3e} "
+          f"({total / scale:.3e} of it), worst leaf {worst} {diffs[worst]:.3e}; "
+          f"tol {PATH_TOL} of the norm")
+    hold_attention_gradients(records)
+    return dict(x=x, y=y, eps=eps, beta=beta, flash=steps["flash"][:2],
+                dense=steps["dense"][:2])
+
+
+# --------------------------------------------------------------------------
+# phase 7: the automatic regime
+
+def auto_regime():
+    from dib_tpu_torch.models import SetTransformer
+    from dib_tpu_torch.ops import attention
+
+    model = SetTransformer(device="cuda", generator=torch.Generator().manual_seed(SEED + 4))
+    x = torch.randn(4, 1024, 32, generator=torch.Generator(device="cuda").manual_seed(SEED + 4),
+                    device="cuda")
+    attention.flash_attention_launches = 0
+    out = model(x)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    launched = attention.flash_attention_launches
+    if launched != len(model.blocks) or not bool(torch.isfinite(out).all()):
+        fail(f"auto regime: {launched} flash launches for a set of 1024 with use_flash=None, "
+             f"expected {len(model.blocks)}")
+    for block in model.blocks:
+        block.attention.use_flash = False
+    with torch.no_grad():
+        err = (model(x) - out).abs().max().item()
+    if err > GRAD_TOL:
+        fail(f"auto regime: the flash forward differs from the dense one by {err:.3e}")
+    print(f"auto regime: SetTransformer on [4, 1024, 32] with use_flash=None launched the "
+          f"flash kernel {launched} times (forward + backward); vs dense forward "
+          f"max_abs_err={err:.3e} tol={GRAD_TOL}")
+
+
+# --------------------------------------------------------------------------
+# phase 8: timings
+
+def time_flash(card):
+    import torch.nn.functional as F
+
+    from dib_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    rows = {}
+    for label, (b, s, h, d, dtype) in {
+        "S=50": (32, 50, 12, 128, torch.float32),
+        "S=1024": (4, 1024, 12, 128, torch.float32),
+        "S=1024 bf16": (4, 1024, 12, 128, torch.bfloat16),
+    }.items():
+        q, k, v = attention_inputs(gen, b, s, h, d, dtype)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # [B, H, S, D]
+        kernel_ms = time_ms(lambda: attention.flash_self_attention(q, k, v), inner=10)
+        plain_ms = time_ms(lambda: attention.flash_self_attention_reference(q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), inner=10)
+        bound_ms, bound_by = flash_bound_ms(b, s, h, d, dtype)
+        rows[label] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        print(f"timing [{card}] flash_attention B={b} S={s} H={h} D={d} "
+              f"{str(dtype).replace('torch.', '')}: kernel {kernel_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), roofline share {bound_ms / kernel_ms:.1%}")
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from dib_tpu_torch.ops import _build, density
+
+    # ---- 1. card -------------------------------------------------------
+    card = card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    # ---- 2. build ------------------------------------------------------
+    t0 = time.perf_counter()
+    paths = _build.build(["mi_row_stats", "flash_attention"])
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(paths)} kernel sources in parallel")
+    for path in paths.values():
+        print_registers(path)
+
+    # ---- 3. kernels vs plain versions on the card ----------------------
+    probe_case = check_row_stats()
+    flash_err = check_flash()
+
+    # ---- 4-7. main paths and their checks ------------------------------
+    serving = serve_and_query()
+    flagship = train_flagship()
+    paths_step = compare_paths(flagship)
+    auto_regime()
+
+    # ---- 8. timings ----------------------------------------------------
+    model, rows, mi_gen = serving["model"], serving["rows"], serving["mi_gen"]
+    u, mus, lv = (t.contiguous() for t in serving["stats_in"][-1])
     g, n, d = u.shape
     k_err = compare("mi_row_stats main-path inputs",
                     density.mi_row_stats(u, mus, lv),
@@ -306,7 +709,14 @@ def main() -> int:
     print(f"timing [{card}] mi_row_stats G={g} N={n} d={d} f32: kernel {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
           f"roofline share {bound_ms / kernel_ms:.1%}")
-    pu, pm, pl = cases[4][1]
+    wide = channel_inputs(torch.Generator(device="cuda").manual_seed(SEED + 6), 50, 1024, 32)
+    wide_ms = time_ms(lambda: density.mi_row_stats(*wide), inner=10)
+    wide_plain = time_ms(lambda: density.mi_row_stats_reference(*wide))
+    wide_bound, wide_by = row_stats_bound_ms(50, 1024, 1024, 32, 4)
+    print(f"timing [{card}] mi_row_stats G=50 N=1024 d=32 f32 (the training path's MI hook): "
+          f"kernel {wide_ms:.4f} ms, plain {wide_plain:.4f} ms, bound {wide_bound:.4f} ms "
+          f"({wide_by}), roofline share {wide_bound / wide_ms:.1%}")
+    pu, pm, pl = probe_case
     probe_ms = time_ms(lambda: density.mi_row_stats(pu, pm, pl, diagonal=False), inner=10)
     probe_plain_ms = time_ms(lambda: density.mi_row_stats_reference(pu, pm, pl, diagonal=False))
     probe_bound, probe_by = row_stats_bound_ms(1, pu.shape[1], pm.shape[1], pu.shape[2], 4,
@@ -314,35 +724,68 @@ def main() -> int:
     print(f"timing [{card}] mi_row_stats probe M={pu.shape[1]} N={pm.shape[1]} d={pu.shape[2]} "
           f"f32: kernel {probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms, "
           f"bound {probe_bound:.4f} ms ({probe_by})")
+    flash_rows = time_flash(card)
+
+    from dib_tpu_torch.train.hooks import all_features_bounds
+
     bounds_ms = time_ms(lambda: all_features_bounds(
         model, rows, EVAL_BATCH, EVAL_BATCHES, generator=mi_gen))
     print(f"timing [{card}] all_features_bounds F={model.num_features} "
           f"batch={EVAL_BATCH}x{EVAL_BATCHES}: {bounds_ms:.4f} ms")
     breakdown = profile_breakdown(lambda: all_features_bounds(
-        model, rows, EVAL_BATCH, EVAL_BATCHES, generator=mi_gen))
+        model, rows, EVAL_BATCH, EVAL_BATCHES, generator=mi_gen), unprofiled_ms=bounds_ms)
     print(f"profile [{card}] all_features_bounds: {breakdown}")
+    engine, rows_np = serving["engine"], serving["rows_np"]
     predict_ms = {}
     for bucket in engine.buckets:
         x = rows_np[:bucket]
         predict_ms[bucket] = time_ms(lambda: engine.predict(x))
     print(f"timing [{card}] predict per bucket (ms): {json.dumps(predict_ms)}")
     x_top = rows_np[:engine.max_bucket]
-    print(f"profile [{card}] predict bucket {engine.max_bucket}: "
-          f"{profile_breakdown(lambda: engine.predict(x_top))}")
+    top_profile = profile_breakdown(lambda: engine.predict(x_top),
+                                    unprofiled_ms=predict_ms[engine.max_bucket])
+    print(f"profile [{card}] predict bucket {engine.max_bucket}: {top_profile}")
 
-    # ---- 7-8. summary lines --------------------------------------------
+    step = paths_step
+    step_fns = {name: (lambda tr=tr, st=st: tr.train_step(st, step["x"], step["y"], step["beta"],
+                                                          step["eps"]))
+                for name, (tr, st) in (("flash", step["flash"]), ("dense", step["dense"]))}
+    step_ms = host_ms(step_fns)
+    print(f"timing [{card}] training step, full width, batch "
+          f"{flagship['train_config'].batch_size}: flash {step_ms['flash']:.4f} ms, "
+          f"dense {step_ms['dense']:.4f} ms (host clock, median of 10 in turns)")
+    for name, fn in step_fns.items():
+        print(f"profile [{card}] training step ({name}): "
+              f"{profile_breakdown(fn, top=8, unprofiled_ms=step_ms[name])}")
+    hook, trainer, state = flagship["hook"], flagship["trainer"], flagship["state"]
+    hook_ms = host_ms({"hook": lambda: hook(trainer, state, state.epoch)}, runs=5)["hook"]
+    print(f"timing [{card}] InfoPerFeatureHook G={trainer.model.num_particles} "
+          f"batch={hook.evaluation_batch_size}x{hook.number_evaluation_batches}: "
+          f"{hook_ms:.4f} ms (host clock, median of 5)")
+
+    # ---- 9-10. summary lines -------------------------------------------
+    total = {name: serving["launches"][name] + flagship["launches"][name]
+             for name in serving["launches"]}
     kernels = [{
         "name": "mi_row_stats",
         "route": "cuda",
         "source": "dib_tpu_torch/csrc/mi_row_stats.cu",
         "replaces": "dib_tpu/ops/pallas_density.py:189",
-        "launches": launches["mi_row_stats"],
+        "launches": total["mi_row_stats"],
         "max_abs_err": k_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "dib_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "dib_tpu/ops/pallas_attention.py:87",
+        "launches": total["flash_attention"],
+        "max_abs_err": flash_err,
+        **flash_rows["S=50"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

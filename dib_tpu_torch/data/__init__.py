@@ -1,4 +1,5 @@
-"""Dataset registry and the datasets the port has so far.
+"""Dataset registry and the datasets the port has so far: the boolean
+circuit and the amorphous per-particle sets.
 
 Importing this package registers every dataset; use
 ``dib_tpu_torch.data.get_dataset(name, **kwargs)``.
@@ -9,7 +10,7 @@ from dib_tpu_torch.data.registry import (
     get_dataset,
     register_dataset,
 )
-from dib_tpu_torch.data import boolean_circuit  # noqa: F401  (registers)
+from dib_tpu_torch.data import amorphous, boolean_circuit  # noqa: F401  (registers)
 from dib_tpu_torch.data.boolean_circuit import (
     PAPER_CIRCUIT,
     apply_gates,

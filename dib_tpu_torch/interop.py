@@ -1,39 +1,89 @@
 """Parameter exchange with the JAX package's Flax checkpoints.
 
-A Flax ``DistributedIBModel`` keeps its variables as
+Each of the port's parameters has one Flax counterpart, in the same layout;
+only the names differ. A Flax ``DistributedIBModel`` keeps
 
-    {'params': {'encoders': {'VmapGaussianEncoder_0': {'MLP_0': {
-                    'Dense_k': {'kernel': [F, in, out], 'bias': [F, out]}}}},
-                'integration': {'Dense_k': {'kernel': [in, out], 'bias': [out]}}}}
+    params/encoders/VmapGaussianEncoder_0/MLP_0/Dense_k/{kernel [F, in, out], bias [F, out]}
+    params/integration/Dense_k/{kernel [in, out], bias [out]}
 
-and the port's model keeps the same arrays, in the same layout, under
-``encoders.mlp.layers.k.*`` and ``integration.layers.k.*``. The trees here
-hold numpy arrays (``jax.device_get`` of a Flax tree, or an Orbax restore).
+a Flax ``PerParticleDIBModel``
+
+    params/particle_encoder/MLP_0/Dense_k/{kernel, bias}
+    params/aggregator/SetAttentionBlock_i/MultiHeadSelfAttention_0/
+        {query, key, value, out | qkv}/{kernel, bias}
+    params/aggregator/SetAttentionBlock_i/{LayerNorm_0, LayerNorm_1}/{scale, bias}
+    params/aggregator/SetAttentionBlock_i/MLP_0/Dense_k/{kernel, bias}
+    params/aggregator/Dense_k/{kernel, bias}
+
+and a Flax ``SetTransformer`` on its own the ``aggregator`` subtree. The
+trees here hold numpy arrays (``jax.device_get`` of a Flax tree, or an Orbax
+restore).
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 from torch import nn
 
-_BANK = ("encoders", "VmapGaussianEncoder_0", "MLP_0")
-_INTEGRATION = ("integration",)
-_PREFIXES = {_BANK: "encoders.mlp", _INTEGRATION: "integration"}
+# (port state-dict name, Flax path under 'params'); {name} matches one path
+# component. The port's LayerNorm 'weight' is Flax's 'scale'.
+_SET_TRANSFORMER = (
+    ("blocks.{i}.attention.{proj}.{leaf}",
+     "SetAttentionBlock_{i}/MultiHeadSelfAttention_0/{proj}/{leaf}"),
+    ("blocks.{i}.norm{n}.weight", "SetAttentionBlock_{i}/LayerNorm_{n}/scale"),
+    ("blocks.{i}.norm{n}.bias", "SetAttentionBlock_{i}/LayerNorm_{n}/bias"),
+    ("blocks.{i}.ff.layers.{k}.{leaf}", "SetAttentionBlock_{i}/MLP_0/Dense_{k}/{leaf}"),
+    ("head.layers.{k}.{leaf}", "Dense_{k}/{leaf}"),
+)
+_RULES = (
+    ("encoders.mlp.layers.{k}.{leaf}", "encoders/VmapGaussianEncoder_0/MLP_0/Dense_{k}/{leaf}"),
+    ("integration.layers.{k}.{leaf}", "integration/Dense_{k}/{leaf}"),
+    ("particle_encoder.mlp.layers.{k}.{leaf}", "particle_encoder/MLP_0/Dense_{k}/{leaf}"),
+    *((f"aggregator.{port}", f"aggregator/{flax}") for port, flax in _SET_TRANSFORMER),
+    *_SET_TRANSFORMER,     # a SetTransformer on its own
+)
+
+
+def _pattern(template: str, sep: str) -> re.Pattern:
+    parts = re.split(r"(\{\w+\})", template)
+    return re.compile("".join(
+        f"(?P<{p[1:-1]}>[^{re.escape(sep)}]+)" if p.startswith("{") else re.escape(p)
+        for p in parts) + "$")
+
+
+_PORT = [(_pattern(port, "."), flax) for port, flax in _RULES]
+_FLAX = [(_pattern(flax, "/"), port) for port, flax in _RULES]
+
+
+def _translate(name: str, rules) -> str | None:
+    for pattern, template in rules:
+        match = pattern.match(name)
+        if match:
+            return template.format(**match.groupdict())
+    return None
+
+
+def _flatten(node, prefix: str = ""):
+    for key, value in node.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, dict) and value:
+            yield from _flatten(value, path + "/")
+        else:
+            yield path, value
 
 
 def params_from_flax(tree) -> dict[str, torch.Tensor]:
-    """Flax ``DistributedIBModel`` variables -> the port's state dict."""
+    """Flax model variables -> the port's state dict."""
     state = {}
-    for path, prefix in _PREFIXES.items():
-        node = tree["params"]
-        for key in path:
-            node = node[key]
-        for name, layer in node.items():
-            index = _dense_index(name)
-            for leaf in ("kernel", "bias"):
-                state[f"{prefix}.layers.{index}.{leaf}"] = torch.from_numpy(
-                    np.array(layer[leaf], dtype=np.float32))
+    for path, value in _flatten(tree["params"]):
+        name = _translate(path, _FLAX)
+        if name is None:
+            raise ValueError(f"unexpected Flax parameter {path!r}: the port has only Dense_<k>, "
+                             "LayerNorm_<k> and attention projection layers")
+        state[name] = torch.from_numpy(np.array(value, dtype=np.float32))
     return state
 
 
@@ -42,19 +92,13 @@ def params_to_flax(model_or_state) -> dict:
     state = (model_or_state.state_dict() if isinstance(model_or_state, nn.Module)
              else model_or_state)
     params: dict = {}
-    for path, prefix in _PREFIXES.items():
+    for name, value in state.items():
+        path = _translate(name, _PORT)
+        if path is None:
+            raise ValueError(f"unexpected parameter {name!r}: no counterpart in a Flax tree")
+        *parents, leaf = path.split("/")
         node = params
-        for key in path:
+        for key in parents:
             node = node.setdefault(key, {})
-        for name, value in state.items():
-            if not name.startswith(prefix + ".layers."):
-                continue
-            index, leaf = name[len(prefix) + len(".layers."):].split(".")
-            node.setdefault(f"Dense_{index}", {})[leaf] = value.detach().cpu().numpy()
+        node[leaf] = value.detach().cpu().numpy()
     return {"params": params}
-
-
-def _dense_index(name: str) -> int:
-    if not name.startswith("Dense_"):
-        raise ValueError(f"unexpected Flax layer {name!r}; expected Dense_<k>")
-    return int(name[len("Dense_"):])

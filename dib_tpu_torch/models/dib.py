@@ -57,6 +57,10 @@ class DistributedIBModel(nn.Module):
     def num_features(self) -> int:
         return len(self.feature_dimensionalities)
 
+    def noise_shape(self, batch: int) -> tuple[int, int, int]:
+        """Shape of the standard-normal noise one forward draws: [F, B, d]."""
+        return (self.num_features, batch, self.encoders.embedding_dim)
+
     def forward(self, x: torch.Tensor, sample: bool = True,
                 generator: torch.Generator | None = None, eps: torch.Tensor | None = None):
         """``sample=False`` is the posterior mean (u = mus); otherwise u is

@@ -34,6 +34,37 @@ def pad_and_stack_features(x: torch.Tensor, feature_dimensionalities: Sequence[i
     return torch.stack([F.pad(b, (0, max_dim - d)) for b, d in zip(blocks, dims)], dim=0)
 
 
+class GaussianEncoder(nn.Module):
+    """Positional encoding + MLP -> (mu, logvar) for one feature, or for
+    every particle of a set through one shared encoder (the particle axis is
+    just another batch axis of the MLP).
+
+    ``in_dim`` is the raw feature width; ``logvar_offset`` shifts the
+    predicted log-variances after the split.
+    """
+
+    def __init__(self, in_dim: int, hidden: Sequence[int] = (128, 128),
+                 embedding_dim: int = 32, num_posenc_frequencies: int = 4,
+                 posenc_start_power: int = 1,
+                 activation: str | Callable | None = "relu", logvar_offset: float = 0.0,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.embedding_dim = embedding_dim
+        self.logvar_offset = float(logvar_offset)
+        self.register_buffer(
+            "frequencies",
+            torch.from_numpy(positional_encoding_frequencies(num_posenc_frequencies,
+                                                             posenc_start_power)),
+            persistent=False)
+        self.mlp = MLP(posenc_output_dim(in_dim, num_posenc_frequencies), hidden,
+                       2 * embedding_dim, activation, generator=generator)
+
+    def forward(self, x: torch.Tensor):
+        out = self.mlp(positional_encoding(x, self.frequencies))
+        d = self.embedding_dim
+        return out[..., :d], out[..., d:] + self.logvar_offset
+
+
 class FeatureEncoderBank(nn.Module):
     """All per-feature Gaussian encoders (positional encoding + MLP ->
     (mu, logvar)) as one batched module.

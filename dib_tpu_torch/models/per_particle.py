@@ -1,0 +1,96 @@
+"""Per-particle Distributed IB: one shared particle bottleneck + a set
+transformer (counterpart of ``dib_tpu/models/per_particle.py``).
+
+The amorphous-plasticity flagship: ONE Gaussian encoder shared by every
+particle of a neighborhood compresses each particle's engineered features
+into a latent channel; the sampled particle codes feed a permutation-
+invariant set transformer that predicts whether the neighborhood is a
+rearrangement locus. The KL penalty sums over latent dimensions and
+particles (the trainer sums ``kl_per_feature``), mean over the batch.
+"Features" are the particle slots, so the trainer and the MI hook treat
+this model as they treat ``DistributedIBModel``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+from torch import nn
+
+from dib_tpu_torch.device import resolve_device
+from dib_tpu_torch.models.encoders import GaussianEncoder
+from dib_tpu_torch.models.set_transformer import SetTransformer
+from dib_tpu_torch.ops.gaussian import kl_diagonal_gaussian, reparameterize
+
+
+class PerParticleDIBModel(nn.Module):
+    """[B, P*F] (or [B, P, F]) neighborhoods -> locus logit, per-particle KL.
+
+    Defaults are the flagship: 50 particles x 12 features, encoder MLP
+    (128, 128) -> 2 x 32 with logvar offset -3, no positional encoding, set
+    transformer of 6 blocks x 12 heads x key_dim 128 (1,293,505 parameters).
+    Parameters are initialised on the CPU from ``generator`` (Flax's
+    schemes) and moved to ``device`` (``None`` means the GPU).
+    """
+
+    def __init__(self, num_particles: int = 50, particle_feature_dim: int = 12,
+                 encoder_hidden: Sequence[int] = (128, 128), embedding_dim: int = 32,
+                 logvar_offset: float = -3.0, num_posenc_frequencies: int = 0,
+                 num_blocks: int = 6, num_heads: int = 12, key_dim: int = 128,
+                 ff_hidden: Sequence[int] = (128,), head_hidden: Sequence[int] = (256,),
+                 output_dim: int = 1, activation: str | Callable | None = "relu",
+                 use_flash: bool | None = None, flash_min_seq: int = 1024,
+                 fuse_qkv: bool = False, remat: bool = False, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.num_particles = num_particles
+        self.particle_feature_dim = particle_feature_dim
+        self.embedding_dim = embedding_dim
+        self.particle_encoder = GaussianEncoder(
+            particle_feature_dim, encoder_hidden, embedding_dim, num_posenc_frequencies,
+            activation=activation, logvar_offset=logvar_offset, generator=generator)
+        self.aggregator = SetTransformer(
+            num_blocks, num_heads, key_dim, embedding_dim, ff_hidden, head_hidden, output_dim,
+            use_flash=use_flash, flash_min_seq=flash_min_seq, fuse_qkv=fuse_qkv, remat=remat,
+            device=device, generator=generator)
+        self.to(device)
+
+    @property
+    def num_features(self) -> int:
+        return self.num_particles
+
+    def noise_shape(self, batch: int) -> tuple[int, int, int]:
+        """Shape of the standard-normal noise one forward draws: [B, P, d]."""
+        return (batch, self.num_particles, self.embedding_dim)
+
+    def _sets(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], self.num_particles, self.particle_feature_dim)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
+                eps: torch.Tensor | None = None, sample: bool = True):
+        """Returns ``(prediction, aux)``; aux carries ``kl_per_feature`` [P]
+        (KL summed over latent dims, mean over the batch), ``mus``/``logvars``
+        [P, B, d] and ``embeddings`` [B, P*d]. ``sample=False`` feeds the
+        posterior means; otherwise u is drawn from ``generator``, or built
+        from the injected noise ``eps`` ([B, P, d])."""
+        batch = x.shape[0]
+        mus, logvars = self.particle_encoder(self._sets(x))      # [B, P, d] each
+        u = reparameterize(mus, logvars, generator, eps) if sample else mus
+        kl_per_feature = kl_diagonal_gaussian(mus, logvars).mean(dim=0)
+        prediction = self.aggregator(u)
+        aux = {"kl_per_feature": kl_per_feature, "mus": mus.movedim(1, 0),
+               "logvars": logvars.movedim(1, 0), "embeddings": u.reshape(batch, -1)}
+        return prediction, aux
+
+    def encode(self, x: torch.Tensor):
+        """Channel parameters of every particle slot: [P, B, d] each."""
+        mus, logvars = self.particle_encoder(self._sets(x))
+        return mus.movedim(1, 0), logvars.movedim(1, 0)
+
+    def encode_feature(self, feature_index: int, x_feature: torch.Tensor):
+        """Channel parameters from raw per-particle data [B, F]; every slot
+        shares the encoder, so ``feature_index`` only names the slot."""
+        del feature_index
+        return self.particle_encoder(x_feature)

@@ -1,0 +1,87 @@
+"""Training history (counterpart of ``dib_tpu/train/history.py``).
+
+A preallocated dict of float32 tensors on the trainer's device, one row per
+recorded epoch, written at a host-side integer cursor, so recording a row
+needs no device sync; it is fetched once, as a :class:`HistoryRecord`.
+Everything is recorded in nats and converted to bits by
+:meth:`HistoryRecord.to_bits` at the reporting boundary.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+FIELDS = ("beta", "kl_per_feature", "loss", "val_loss", "metric", "val_metric")
+
+
+def history_init(num_records: int, num_features: int, device=None) -> dict:
+    """Preallocated history: one row per recorded epoch."""
+    history = {name: torch.zeros(num_records, device=device) for name in FIELDS}
+    history["kl_per_feature"] = torch.zeros(num_records, num_features, device=device)
+    history["cursor"] = 0
+    return history
+
+
+def history_extend(history: dict, extra_records: int) -> dict:
+    """A new history with ``extra_records`` more rows of capacity (zeros past
+    the end); the cursor and the recorded rows are kept."""
+    if extra_records < 0:
+        raise ValueError(f"extra_records must be >= 0, got {extra_records}")
+    out = {"cursor": history["cursor"]}
+    for name in FIELDS:
+        buf = history[name]
+        pad = buf.new_zeros((extra_records, *buf.shape[1:]))
+        out[name] = torch.cat([buf, pad])
+    return out
+
+
+def history_record(history: dict, row: dict) -> dict:
+    """Write one row at the cursor (in place) and advance the cursor."""
+    cursor = history["cursor"]
+    with torch.no_grad():
+        for name, value in row.items():
+            history[name][cursor] = value
+    history["cursor"] = cursor + 1
+    return history
+
+
+@dataclass
+class HistoryRecord:
+    """Host-side view of a fetched history (trimmed to the cursor)."""
+
+    beta: np.ndarray
+    kl_per_feature: np.ndarray       # [T, F] nats
+    loss: np.ndarray                 # [T] nats (task loss only, beta*KL removed)
+    val_loss: np.ndarray
+    metric: np.ndarray
+    val_metric: np.ndarray
+
+    @classmethod
+    def from_device(cls, history: dict) -> "HistoryRecord":
+        n = history["cursor"]
+        return cls(**{name: history[name][:n].detach().cpu().numpy() for name in FIELDS})
+
+    def to_bits(self, loss_is_info_based: bool = True) -> "HistoryRecord":
+        """Nats -> bits for KL always; for losses only when info-based."""
+        ln2 = np.log(2.0)
+        scale = ln2 if loss_is_info_based else 1.0
+        return HistoryRecord(
+            beta=self.beta,
+            kl_per_feature=self.kl_per_feature / ln2,
+            loss=self.loss / scale,
+            val_loss=self.val_loss / scale,
+            metric=self.metric,
+            val_metric=self.val_metric,
+        )
+
+    @property
+    def total_kl(self) -> np.ndarray:
+        return self.kl_per_feature.sum(-1)
+
+    @property
+    def combined_loss(self) -> np.ndarray:
+        """The reported objective: task + beta * total KL."""
+        return self.loss + self.beta * self.total_kl

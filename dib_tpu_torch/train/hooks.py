@@ -1,11 +1,13 @@
 """Instrumentation hooks (counterpart of ``dib_tpu/train/hooks.py``).
 
-So far: the all-channels MI measurement, the paper's per-feature information
-query on a fixed set of weights.
+``all_features_bounds`` is the paper's per-feature information query on a
+fixed set of weights; ``InfoPerFeatureHook`` runs it between training
+chunks and keeps the trajectory, and ``Every`` gives a hook its own cadence.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dib_tpu_torch.ops.gaussian import reparameterize
@@ -40,3 +42,70 @@ def all_features_bounds(model, rows, batch_size: int = 1024, num_batches: int = 
             lowers.append(lower)
             uppers.append(upper)
     return torch.stack(lowers).mean(0), torch.stack(uppers).mean(0)
+
+
+class Every:
+    """Run ``hook`` only when the epoch is a multiple of ``cadence``, so hooks
+    with different cadences share one ``fit(hook_every=...)`` chunking (pass
+    the gcd as ``hook_every``)."""
+
+    def __init__(self, cadence: int, hook):
+        self.cadence = max(int(cadence), 1)
+        self.hook = hook
+
+    def fires_at(self, epoch: int) -> bool:
+        return epoch % self.cadence == 0
+
+    def __call__(self, trainer, state, epoch: int):
+        if self.fires_at(epoch):
+            self.hook(trainer, state, epoch)
+
+
+class InfoPerFeatureHook:
+    """Accumulates (epoch, per-feature (lower, upper)) MI bounds in nats on
+    the validation rows, every channel of an eval batch in one kernel launch
+    (:func:`all_features_bounds`).
+
+    Draws come from a generator seeded with ``seed`` on the model's device;
+    ``draws`` (a callable ``(model, rows) -> (idx, u)``, called once per
+    invocation) replaces them, so a test can replay another
+    implementation's draws.
+    """
+
+    def __init__(self, evaluation_batch_size: int = 1024, number_evaluation_batches: int = 8,
+                 seed: int = 0, draws=None):
+        self.evaluation_batch_size = evaluation_batch_size
+        self.number_evaluation_batches = number_evaluation_batches
+        self.seed = seed
+        self.draws = draws
+        self.records: list[dict] = []
+        self._generator = None
+        self._rows = None
+        self._rows_for = None     # the bundle the uploaded rows came from
+
+    def __call__(self, trainer, state, epoch: int):
+        model = trainer.model
+        device = next(model.parameters()).device
+        if self._rows_for is not trainer.bundle or self._rows.device != device:
+            self._rows = torch.as_tensor(trainer.bundle.x_valid, dtype=torch.float32,
+                                         device=device)
+            self._rows_for = trainer.bundle
+        idx = u = None
+        if self.draws is not None:
+            idx, u = self.draws(model, self._rows)
+        elif self._generator is None or self._generator.device != device:
+            self._generator = torch.Generator(device=device).manual_seed(self.seed)
+        lower, upper = all_features_bounds(
+            model, self._rows, self.evaluation_batch_size, self.number_evaluation_batches,
+            generator=self._generator, idx=idx, u=u)
+        bounds = [(float(a), float(b)) for a, b in zip(lower.tolist(), upper.tolist())]
+        self.records.append({"epoch": epoch, "bounds": bounds})
+
+    @property
+    def bounds_bits(self) -> np.ndarray:
+        """[T, F, 2] array of (lower, upper) in bits."""
+        return np.asarray([r["bounds"] for r in self.records]) / np.log(2.0)
+
+    @property
+    def epochs(self) -> np.ndarray:
+        return np.asarray([r["epoch"] for r in self.records])
