@@ -27,11 +27,21 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      block's flash q/k/v gradients against float64
   7. the automatic regime: a full-width set transformer on a set of 1024
      launches the kernel with no flag set
-  8. CUDA-event timings of the kernels, their plain versions and the
+  8. main path 3, the flagship driver: ``run_amorphous_workload`` at full
+     width (defaults, flash attention, the 100 x 100 probe grid against a
+     512-particle bank, rendering off); the only cuts are the steps and the
+     hooks' cadences. Launch counts read around it; one probe call held to
+     the plain path; every grid finite inside the g(r) mask
+  9. main path 4, the kernel microbench
+     (``dib_tpu_torch.scripts.bench_kernels``, the path of the log-density
+     matrix kernel): its record on one line, every arm held to the plain
+     materialize-and-reduce arm
+ 10. CUDA-event timings of the kernels, their plain versions and the
      library call beside their bounds; the MI query, predict, the training
-     step (flash and dense) and the MI hook; profiler breakdowns
-  9. one JSON line listing each ported kernel
- 10. the last line: ``{"ok": true, "device": {...}}``
+     step (flash and dense), the MI hook, the probe hook and the driver;
+     profiler breakdowns
+ 11. one JSON line listing each ported kernel
+ 12. the last line: ``{"ok": true, "device": {...}}``
 
 Without a CUDA device it exits nonzero before printing any result.
 """
@@ -54,6 +64,7 @@ import torch
 
 SEED = 0
 F32_TOL = 2e-5            # kernel vs plain, float32 inputs
+DIAG_TOL = 1e-6           # the density matrix's diagonal, u ~= mu at small variance
 BF16_TOL = 2e-2           # kernel vs plain, bfloat16 inputs
 GRAD_TOL = 1e-4           # flash gradients, and scores scaled by 100
 SERVE_TOL = 1e-6          # batched vs direct dispatch
@@ -63,6 +74,9 @@ NOISE_MULT = 10           # flash attention gradients: error against float64, x 
 ATTN_FLOOR = 1e-5         # ... plus this share of the gradient's norm
 EVAL_BATCH, EVAL_BATCHES = 1024, 8
 TRAIN_STEPS, STEPS_PER_EPOCH, EVAL_EVERY = 40, 10, 10   # cut from 25,000 steps
+# the driver: 40 steps of one epoch each (the reference's per-step beta), MI
+# bounds every 10 and probe maps every 20 steps (cut from 250 and 1000)
+DRIVER_STEPS, DRIVER_EVAL_EVERY, DRIVER_PROBE_EVERY = 40, 10, 20
 # H100 SXM published peaks: f32 on the CUDA cores, dense bf16 tensor cores,
 # HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -74,15 +88,10 @@ def fail(message: str):
     raise SystemExit(f"chip_smoke: FAILED: {message}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def compare(name, got, want, tol):
-    """Max abs/rel error over output tuples; fails beyond atol = rtol = tol."""
+    """Max abs/rel error over output tuples; fails beyond atol = rtol = tol
+    (as ``numpy.testing.assert_allclose`` holds the JAX package's kernels).
+    Returns the errors and the tolerance, as keys of the ``kernels`` line."""
     worst_abs = worst_rel = 0.0
     for g, w in zip(got, want):
         diff = (g.float() - w.float()).abs()
@@ -92,7 +101,7 @@ def compare(name, got, want, tol):
             fail(f"{name}: kernel disagrees with the plain version "
                  f"(max abs {worst_abs:.3e}, max rel {worst_rel:.3e}, tol {tol})")
     print(f"check {name}: max_abs_err={worst_abs:.3e} max_rel_err={worst_rel:.3e} tol={tol}")
-    return worst_abs
+    return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "atol": tol, "rtol": tol}
 
 
 def channel_inputs(gen, g, n, d, dtype=torch.float32, m=None, probe=False):
@@ -197,6 +206,13 @@ def row_stats_bound_ms(g, n, m, d, itemsize, diagonal=True):
     return bound(ops, nbytes, PEAK_F32_FLOPS)
 
 
+def log_density_mat_bound_ms(n, m, d):
+    """The density matrix: per entry 3 f32 operations per channel dim
+    (difference, scale, square-accumulate as an FMA) plus the normaliser
+    (2); u, mu and lv read once and the [N, M] f32 matrix written once."""
+    return bound(n * m * (3 * d + 2), (n * d + 2 * m * d) * 4 + n * m * 4, PEAK_F32_FLOPS)
+
+
 def flash_bound_ms(b, s, h, d, dtype):
     """Attention: 4 B H S^2 D operations (the q.k and p.v products) at the
     peak of the input type; q, k, v read once and the f32 output written once."""
@@ -276,6 +292,47 @@ def check_flash():
     compare("flash_attention gradients dq, dk, dv B=4 S=1024 H=12 D=128 f32", got,
             [t.grad for t in (q, k, v)], GRAD_TOL)
     return errors[cases[0][0]]
+
+
+def density_inputs(rng, n, m, d):
+    """The microbench's inputs (numpy-seeded, as ``bench_kernels``)."""
+    def tensor(a):
+        return torch.as_tensor(a.astype(np.float32), device="cuda")
+
+    return (tensor(rng.normal(scale=2.0, size=(n, d))),
+            tensor(rng.normal(scale=2.0, size=(m, d))),
+            tensor(rng.normal(scale=0.7, size=(m, d)) - 1.0))
+
+
+def check_log_density_mat():
+    """The density matrix kernel at the microbench's shapes (square, ragged,
+    probe), the flagship's probe shape, a ragged channel axis of two d
+    chunks, and the diagonal-precision case. Returns {shape: errors}."""
+    from dib_tpu_torch.ops import density
+
+    rng = np.random.default_rng(SEED + 8)
+    errors = {}
+    for n, m, d in ((512, 512, 16), (1024, 1024, 32), (1000, 1000, 32), (4096, 4096, 32),
+                    (1000, 4096, 32), (10_000, 512, 32), (130, 33, 45), (1, 1, 1)):
+        u, mus, lv = density_inputs(rng, n, m, d)
+        got = density.log_density_matrix(u, mus, lv)
+        torch.cuda.synchronize()
+        if got.shape != (n, m) or got.dtype != torch.float32:
+            fail(f"log_density_mat N={n} M={m} d={d}: output {tuple(got.shape)} {got.dtype}")
+        errors[(n, m, d)] = compare(f"log_density_mat N={n} M={m} d={d} f32", [got],
+                                    [density.gaussian_log_density_mat(u, mus, lv)], F32_TOL)
+    # the diagonal: u ~= mu at variance e^-6, where the norm expansion would cancel
+    n, d = 1024, 32
+    mus = torch.as_tensor(rng.normal(scale=3.0, size=(n, d)).astype(np.float32), device="cuda")
+    lv = torch.full((n, d), -6.0, device="cuda")
+    u = mus + torch.as_tensor(rng.normal(scale=np.exp(-3.0), size=(n, d)).astype(np.float32),
+                              device="cuda")
+    got = density.log_density_matrix(u, mus, lv)
+    want = density.gaussian_log_density_mat(u, mus, lv)
+    compare(f"log_density_mat N=M={n} d={d} logvar=-6 whole matrix", [got], [want], F32_TOL)
+    compare(f"log_density_mat N=M={n} d={d} logvar=-6 diagonal",
+            [torch.diagonal(got)], [torch.diagonal(want)], DIAG_TOL)
+    return errors
 
 
 # --------------------------------------------------------------------------
@@ -636,7 +693,161 @@ def auto_regime():
 
 
 # --------------------------------------------------------------------------
-# phase 8: timings
+# phase 8: main path 3, the flagship driver with its probe maps
+
+def drive_amorphous():
+    from dib_tpu_torch.ops import attention, density, info_bounds
+    from dib_tpu_torch.ops.gaussian import reparameterize
+    from dib_tpu_torch.viz.probe_maps import density_mask
+    from dib_tpu_torch.workloads import (
+        AmorphousWorkloadConfig,
+        pair_correlation,
+        probe_features_for_type,
+        probe_grid_positions,
+        probe_info_maps,
+        run_amorphous_workload,
+    )
+
+    config = dataclasses.replace(AmorphousWorkloadConfig(), num_steps=DRIVER_STEPS,
+                                 eval_every=DRIVER_EVAL_EVERY, probe_every=DRIVER_PROBE_EVERY)
+    print(f"driver: run_amorphous_workload, AmorphousWorkloadConfig() at full width, "
+          f"use_flash=True, grid {config.grid_side}x{config.grid_side} against a bank of "
+          f"{config.probe_data_batch}; cut: num_steps 25000 -> {DRIVER_STEPS}, eval_every "
+          f"250 -> {DRIVER_EVAL_EVERY}, probe_every 1000 -> {DRIVER_PROBE_EVERY}; render=False")
+    density.mi_row_stats_launches = 0
+    attention.flash_attention_launches = 0
+    density.log_density_mat_launches = 0
+    t0 = time.perf_counter()
+    result = run_amorphous_workload(SEED, config, outdir="amorphous_out",
+                                    model_overrides={"use_flash": True}, render=False)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"mi_row_stats": density.mi_row_stats_launches,
+                "flash_attention": attention.flash_attention_launches,
+                "log_density_mat": density.log_density_mat_launches}
+    info_calls, probe_calls = len(result["mi_epochs"]), len(result["probe_grids"])
+    print(f"main path launches (driver, {DRIVER_STEPS} steps, {info_calls} MI hook calls, "
+          f"{probe_calls} probe hook calls): {json.dumps(launches)}")
+    if info_calls != DRIVER_STEPS // DRIVER_EVAL_EVERY or \
+            probe_calls != DRIVER_STEPS // DRIVER_PROBE_EVERY:
+        fail(f"driver: {info_calls} MI hook calls and {probe_calls} probe hook calls")
+    probe_launches = launches["mi_row_stats"] - config.mi_eval_batches * info_calls
+    if probe_launches != 2 * probe_calls:
+        fail(f"driver: {launches['mi_row_stats']} mi_row_stats launches, of which "
+             f"{probe_launches} probe-mode; expected 2 per probe call ({2 * probe_calls})")
+    want_flash = 6 * 2 * DRIVER_STEPS          # 6 blocks, per step and per validation pass
+    if launches["flash_attention"] != want_flash:
+        fail(f"driver: {launches['flash_attention']} flash launches, expected {want_flash}")
+
+    history = result["history"]
+    for name in ("loss", "val_loss", "kl_per_feature"):
+        if not np.isfinite(getattr(history, name)).all():
+            fail(f"driver: non-finite {name}")
+    bounds = result["mi_bounds_bits"]
+    if bounds.shape != (info_calls, config.number_particles, 2) or not np.isfinite(bounds).all():
+        fail(f"driver: MI bounds of shape {bounds.shape} or non-finite")
+    sets = result["bundle"].extras["sets_train"]
+    positions = probe_grid_positions(config.grid_side, config.grid_extent)
+    g_r, edges = pair_correlation(sets)
+    inside = ~np.isnan(density_mask(positions, g_r, edges[1:], config.grid_side))
+    cap = math.log(config.probe_data_batch + 1) + BOUNDS_TOL
+    for epoch, grids in result["probe_grids"].items():
+        for grid in grids:
+            if grid.shape != (config.grid_side, config.grid_side, 2) or \
+                    not np.isfinite(grid[inside]).all():
+                fail(f"driver: probe grid at epoch {epoch} of shape {grid.shape} or "
+                     "non-finite inside the g(r) mask")
+            if not (grid[inside][:, 0] <= cap).all():
+                fail(f"driver: an InfoNCE probe bound at epoch {epoch} exceeds log(bank + 1)")
+
+    # one probe call on the trained model, then the same u through the plain path
+    model = result["state"].params["model"]
+    particles = torch.as_tensor(sets.reshape(-1, sets.shape[-1]), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    idx = torch.randint(0, particles.shape[0], (config.probe_data_batch,), generator=gen,
+                        device="cuda")
+    eps = tuple(torch.randn(len(positions), model.embedding_dim, generator=gen, device="cuda")
+                for _ in range(2))
+    before = density.mi_row_stats_launches
+    grids = probe_info_maps(model, particles, config, draws=(idx, eps))
+    if density.mi_row_stats_launches - before != 2:
+        fail(f"probe call: {density.mi_row_stats_launches - before} launches, expected 2")
+    # The lower bounds are at most log(bank + 1) = 6.24 nats and are held to
+    # BOUNDS_TOL absolute. The upper bounds of the untrained flagship reach
+    # ~1e6 nats inside the g(r) mask and ~4e8 outside (encoder log-variances
+    # down to -26), where one float32 ulp is up to 32 nats, so they are held
+    # as every kernel here is held: to BOUNDS_TOL absolute plus BOUNDS_TOL of
+    # their magnitude.
+    worst_lower = 0.0
+    with torch.inference_mode():
+        data_mus, data_lv = model.encode_feature(0, particles[idx])
+        for type_id, eps_t, grid in zip((1, 2), eps, grids):
+            feats = torch.as_tensor(probe_features_for_type(positions, type_id), device="cuda")
+            mus, lv = model.encode_feature(0, feats)
+            u = reparameterize(mus, lv, eps=eps_t)
+            kernel = torch.stack(info_bounds.mi_sandwich_probe(mus, lv, data_mus, data_lv, u=u),
+                                 -1).cpu().numpy().reshape(grid.shape)
+            info_bounds.mi_row_stats = density.mi_row_stats_reference
+            try:
+                plain = torch.stack(info_bounds.mi_sandwich_probe(mus, lv, data_mus, data_lv,
+                                                                  u=u), -1)
+            finally:
+                info_bounds.mi_row_stats = density.mi_row_stats
+            plain = plain.cpu().numpy().reshape(grid.shape)
+            if not np.array_equal(kernel, grid):
+                fail(f"probe call: probe_info_maps type {type_id} differs from "
+                     "mi_sandwich_probe on the same draws")
+            err = float(np.abs(kernel[..., 0] - plain[..., 0]).max())
+            worst_lower = max(worst_lower, err)
+            if err > BOUNDS_TOL or not np.isfinite(kernel).all():
+                fail(f"probe call type {type_id}: kernel path vs plain path lower bounds "
+                     f"differ by {err:.3e} nats (tol {BOUNDS_TOL})")
+            worst_upper = compare(f"probe call type {type_id} upper bounds, kernel vs plain path "
+                                  f"(|bound| up to {np.abs(plain[..., 1]).max():.4g} nats)",
+                                  [torch.from_numpy(kernel[..., 1])],
+                                  [torch.from_numpy(plain[..., 1])], BOUNDS_TOL)
+    last = result["probe_grids"][max(result["probe_grids"])]
+    print(f"driver: {DRIVER_STEPS} steps in {wall_s:.3f} s (host clock, one run); loss "
+          f"{history.loss[::10].tolist()} bits; MI hook at epochs {result['mi_epochs'].tolist()}; "
+          f"probe grids at epochs {sorted(result['probe_grids'])}, finite inside the g(r) mask "
+          f"({int(inside.sum())} of {inside.size} points); last maps' mean lower/upper (nats, "
+          f"inside the mask) type A {last[0][inside].mean(0).tolist()} type B "
+          f"{last[1][inside].mean(0).tolist()}; one probe call kernel vs plain lower bounds "
+          f"max_abs_err={worst_lower:.3e} tol={BOUNDS_TOL}, upper bounds max_abs_err="
+          f"{worst_upper['max_abs_err']:.3e}")
+    return dict(config=config, result=result, wall_s=wall_s, launches=launches,
+                probe_launches=probe_launches)
+
+
+# --------------------------------------------------------------------------
+# phase 9: main path 4, the kernel microbench
+
+def run_microbench():
+    from dib_tpu_torch.ops import attention, density
+    from dib_tpu_torch.scripts import bench_kernels
+
+    density.mi_row_stats_launches = 0
+    attention.flash_attention_launches = 0
+    density.log_density_mat_launches = 0
+    record = bench_kernels.run(reps=3)
+    torch.cuda.synchronize()
+    launches = {"mi_row_stats": density.mi_row_stats_launches,
+                "flash_attention": attention.flash_attention_launches,
+                "log_density_mat": density.log_density_mat_launches}
+    print(json.dumps(record))
+    print(f"main path launches (microbench, {len(record['rows'])} shapes): "
+          f"{json.dumps(launches)}")
+    if not record["all_parity_ok"]:
+        bad = [(r["kind"], r["rows"], r["cols"], r["d"]) for r in record["rows"]
+               if not r["parity"]["ok"]]
+        fail(f"microbench: parity failed at {bad}")
+    if launches["log_density_mat"] == 0 or launches["mi_row_stats"] == 0:
+        fail(f"microbench: kernel launches {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 10: timings
 
 def time_flash(card):
     import torch.nn.functional as F
@@ -665,10 +876,45 @@ def time_flash(card):
     return rows
 
 
+def time_log_density_mat(card):
+    """The density kernel alone at each microbench shape, against its plain
+    version and its bound."""
+    from dib_tpu_torch.ops import density
+    from dib_tpu_torch.scripts.bench_kernels import GPU_SHAPES
+
+    rng = np.random.default_rng(SEED + 9)
+    rows = {}
+    for _, n, m, d in GPU_SHAPES:
+        u, mus, lv = density_inputs(rng, n, m, d)
+        kernel_ms = time_ms(lambda: density.log_density_matrix(u, mus, lv), inner=10)
+        plain_ms = time_ms(lambda: density.gaussian_log_density_mat(u, mus, lv), runs=5)
+        bound_ms, bound_by = log_density_mat_bound_ms(n, m, d)
+        rows[(n, m, d)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+        print(f"timing [{card}] log_density_mat N={n} M={m} d={d} f32: kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), roofline share {bound_ms / kernel_ms:.1%}")
+    return rows
+
+
+def time_probe_hook(card, driver):
+    """One ProbeGridHook call on the trained flagship (rendering off)."""
+    from dib_tpu_torch.workloads import ProbeGridHook
+
+    result = driver["result"]
+    hook = ProbeGridHook("amorphous_out", result["state"].params["model"],
+                         result["bundle"].extras["sets_train"], driver["config"], render=False)
+    probe_ms = host_ms({"probe": lambda: hook(None, None, 0)}, runs=5)["probe"]
+    print(f"profile [{card}] ProbeGridHook: "
+          f"{profile_breakdown(lambda: hook(None, None, 0), unprofiled_ms=probe_ms)}")
+    return probe_ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    from dib_tpu_torch.device import card_line
     from dib_tpu_torch.ops import _build, density
 
     # ---- 1. card -------------------------------------------------------
@@ -681,7 +927,7 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
-    paths = _build.build(["mi_row_stats", "flash_attention"])
+    paths = _build.build(["mi_row_stats", "flash_attention", "log_density_mat"])
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(paths)} kernel sources in parallel")
     for path in paths.values():
         print_registers(path)
@@ -689,14 +935,17 @@ def main() -> int:
     # ---- 3. kernels vs plain versions on the card ----------------------
     probe_case = check_row_stats()
     flash_err = check_flash()
+    density_errs = check_log_density_mat()
 
-    # ---- 4-7. main paths and their checks ------------------------------
+    # ---- 4-9. main paths and their checks ------------------------------
     serving = serve_and_query()
     flagship = train_flagship()
     paths_step = compare_paths(flagship)
     auto_regime()
+    driver = drive_amorphous()
+    bench_launches = run_microbench()
 
-    # ---- 8. timings ----------------------------------------------------
+    # ---- 10. timings ---------------------------------------------------
     model, rows, mi_gen = serving["model"], serving["rows"], serving["mi_gen"]
     u, mus, lv = (t.contiguous() for t in serving["stats_in"][-1])
     g, n, d = u.shape
@@ -763,16 +1012,26 @@ def main() -> int:
           f"batch={hook.evaluation_batch_size}x{hook.number_evaluation_batches}: "
           f"{hook_ms:.4f} ms (host clock, median of 5)")
 
-    # ---- 9-10. summary lines -------------------------------------------
-    total = {name: serving["launches"][name] + flagship["launches"][name]
-             for name in serving["launches"]}
+    density_rows = time_log_density_mat(card)
+    probe_ms = time_probe_hook(card, driver)
+    print(f"timing [{card}] run_amorphous_workload, full width, {DRIVER_STEPS} steps with "
+          f"{len(driver['result']['mi_epochs'])} MI hook and "
+          f"{len(driver['result']['probe_grids'])} probe hook calls: {driver['wall_s']:.3f} s "
+          f"(host clock, one run); probe hook {probe_ms:.4f} ms per call")
+
+    # ---- 11-12. summary lines ------------------------------------------
+    runs = (serving["launches"], flagship["launches"], driver["launches"], bench_launches)
+    total = {name: sum(r.get(name, 0) for r in runs)
+             for name in ("mi_row_stats", "flash_attention", "log_density_mat")}
+    print(f"main path launches, all paths: {json.dumps(total)}; mi_row_stats probe mode in the "
+          f"driver: {driver['probe_launches']}")
     kernels = [{
         "name": "mi_row_stats",
         "route": "cuda",
         "source": "dib_tpu_torch/csrc/mi_row_stats.cu",
         "replaces": "dib_tpu/ops/pallas_density.py:189",
         "launches": total["mi_row_stats"],
-        "max_abs_err": k_err,
+        **k_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -784,8 +1043,17 @@ def main() -> int:
         "source": "dib_tpu_torch/csrc/flash_attention.cu",
         "replaces": "dib_tpu/ops/pallas_attention.py:87",
         "launches": total["flash_attention"],
-        "max_abs_err": flash_err,
+        **flash_err,
         **flash_rows["S=50"],
+    }, {
+        "name": "log_density_mat",
+        "route": "cuda",
+        "source": "dib_tpu_torch/csrc/log_density_mat.cu",
+        "replaces": "dib_tpu/ops/pallas_density.py:56",
+        "launches": total["log_density_mat"],
+        **density_errs[(4096, 4096, 32)],
+        **density_rows[(4096, 4096, 32)],
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

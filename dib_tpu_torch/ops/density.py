@@ -1,4 +1,5 @@
-"""One-pass MI-sandwich row statistics: the CUDA kernel and its plain version.
+"""The Gaussian log-density kernels and their plain versions: the one-pass
+MI-sandwich row statistics and the full log-density matrix.
 
 The sandwich bounds consume only three per-row reductions of the [N, M]
 log-density matrix ``log p(u_i | x_j)``: the diagonal entry, the logsumexp
@@ -20,7 +21,15 @@ registers, stages column tiles in shared memory read as warp broadcasts, and
 runs the whole column loop inside one block so no state crosses blocks; see
 the source note in the ``.cu`` file.
 
-``mi_row_stats`` takes the plain PyTorch version only for CPU tensors; a CUDA
+The second kernel, ``csrc/log_density_mat.cu`` behind
+:func:`log_density_matrix`, writes the whole [N, M] matrix. It replaces
+``dib_tpu/ops/pallas_density.py::_density_kernel`` (through
+``gaussian_log_density_mat_pallas``); the kernel microbench
+(``dib_tpu_torch.scripts.bench_kernels``) is the path that runs it. Its
+output is its only large traffic, so the design stores each entry once,
+coalesced, and reuses each staged input across a 64 x 64 tile.
+
+Both wrappers take the plain PyTorch version only for CPU tensors; a CUDA
 tensor launches the kernel or raises.
 """
 
@@ -38,8 +47,10 @@ NEG_INF = -1e30   # large-finite mask value: inf - inf would give NaN
 MAX_DIM = 64      # widest channel the kernel's register tile holds
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches made by ``mi_row_stats``; the plain version never counts.
+# Kernel launches made by ``mi_row_stats`` and ``log_density_matrix``; the
+# plain versions never count.
 mi_row_stats_launches = 0
+log_density_mat_launches = 0
 
 
 def mi_row_stats_reference(u: torch.Tensor, mus: torch.Tensor, logvars: torch.Tensor,
@@ -134,3 +145,56 @@ def _launch(u, mus, logvars, diagonal: bool):
         raise RuntimeError(f"mi_row_stats kernel launch failed with CUDA error {err}")
     mi_row_stats_launches += 1
     return (diag, full, off) if diagonal else (full, full, full)
+
+
+def log_density_matrix(u: torch.Tensor, mus: torch.Tensor, logvars: torch.Tensor) -> torch.Tensor:
+    """The [N, M] matrix ``log p(u_i | x_j)`` of diagonal Gaussians.
+
+    ``u`` is [N, d], ``mus``/``logvars`` [M, d]. Same contract as
+    :func:`~dib_tpu_torch.ops.gaussian.gaussian_log_density_mat`, its plain
+    version, which CPU tensors take. On a CUDA tensor the kernel takes
+    contiguous float32 inputs and writes a float32 matrix.
+    """
+    if u.dim() != 2 or mus.dim() != 2 or mus.shape != logvars.shape:
+        raise ValueError(f"expected u [N,d], mus/logvars [M,d]; got "
+                         f"{tuple(u.shape)}, {tuple(mus.shape)}, {tuple(logvars.shape)}")
+    if u.shape[1] != mus.shape[1]:
+        raise ValueError(f"channel axes differ: {tuple(u.shape)} vs {tuple(mus.shape)}")
+    if not (u.device == mus.device == logvars.device):
+        raise ValueError("u, mus and logvars must be on one device")
+    if u.device.type == "cpu":
+        return gaussian_log_density_mat(u, mus, logvars)
+    if u.device.type == "cuda":
+        return _launch_density(u, mus, logvars)
+    raise ValueError(f"log_density_matrix runs on cpu or cuda tensors, not {u.device.type}")
+
+
+@functools.cache
+def _density_entry():
+    """The C entry point ``log_density_mat_launch``, built and typed on first use."""
+    fn = _build.load("log_density_mat").log_density_mat_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_density(u, mus, logvars):
+    global log_density_mat_launches
+    n, d = u.shape
+    m = mus.shape[0]
+    if not (u.dtype == mus.dtype == logvars.dtype == torch.float32):
+        raise TypeError(f"the kernel takes float32 inputs, got "
+                        f"{u.dtype}, {mus.dtype}, {logvars.dtype}")
+    if not (u.is_contiguous() and mus.is_contiguous() and logvars.is_contiguous()):
+        raise ValueError("the kernel takes contiguous inputs")
+    if n == 0 or m == 0 or d == 0 or n > 64 * 65535:
+        raise ValueError(f"the kernel needs 1 <= N <= {64 * 65535} and non-empty M and d, "
+                         f"got N={n}, M={m}, d={d}")
+    out = torch.empty((n, m), dtype=torch.float32, device=u.device)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    err = _density_entry()(u.data_ptr(), mus.data_ptr(), logvars.data_ptr(), out.data_ptr(),
+                           n, m, d, u.device.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"log_density_mat kernel launch failed with CUDA error {err}")
+    log_density_mat_launches += 1
+    return out

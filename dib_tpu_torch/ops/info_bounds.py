@@ -19,8 +19,8 @@ import math
 
 import torch
 
-from dib_tpu_torch.ops.density import mi_row_stats
-from dib_tpu_torch.ops.gaussian import _LOG_2PI, reparameterize
+from dib_tpu_torch.ops.density import NEG_INF, mi_row_stats
+from dib_tpu_torch.ops.gaussian import _LOG_2PI, gaussian_log_density_mat, reparameterize
 
 
 def sandwich_from_row_stats(log_p_ii: torch.Tensor, lse_full: torch.Tensor,
@@ -31,6 +31,33 @@ def sandwich_from_row_stats(log_p_ii: torch.Tensor, lse_full: torch.Tensor,
     lower = torch.mean(log_p_ii - (lse_full - log_batch), dim=-1)
     upper = torch.mean(log_p_ii - (lse_off - log_batch), dim=-1)
     return lower, upper
+
+
+def mi_row_stats_blocked(u: torch.Tensor, mus: torch.Tensor, logvars: torch.Tensor,
+                         row_block: int | None = None):
+    """Per-row ``(diag, lse_full, lse_off)`` of the square [B, B] log-density
+    matrix in plain PyTorch, ``row_block`` rows of the matrix at a time.
+
+    Only the three per-row reductions of each block are kept, so peak memory
+    is [row_block, B, d] instead of [B, B, d]; the last block may be ragged.
+    Without ``row_block`` the whole matrix is formed and reduced. It never
+    routes to a kernel (the kernel microbench times it against them).
+    Counterpart of ``dib_tpu/ops/info_bounds.py::_mi_row_stats_xla``.
+    """
+    n = u.shape[0]
+    block = n if row_block is None else row_block
+    if block < 1:
+        raise ValueError(f"row_block must be positive, got {row_block}")
+    cols = torch.arange(mus.shape[0], device=u.device)
+    diags, fulls, offs = [], [], []
+    for r0 in range(0, n, block):
+        log_p = gaussian_log_density_mat(u[r0:r0 + block], mus, logvars)     # [rb, B]
+        rows = torch.arange(r0, r0 + log_p.shape[0], device=u.device)
+        is_diag = rows[:, None] == cols[None, :]
+        diags.append(torch.sum(torch.where(is_diag, log_p, 0.0), dim=1))
+        fulls.append(torch.logsumexp(log_p, dim=1))
+        offs.append(torch.logsumexp(log_p.masked_fill(is_diag, NEG_INF), dim=1))
+    return torch.cat(diags), torch.cat(fulls), torch.cat(offs)
 
 
 def mi_sandwich_from_params(mus: torch.Tensor, logvars: torch.Tensor,

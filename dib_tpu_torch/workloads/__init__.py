@@ -1,3 +1,14 @@
 """Paper workloads of the port: the amorphous-plasticity flagship so far."""
 
-from dib_tpu_torch.workloads.amorphous import AmorphousWorkloadConfig, build_model
+from dib_tpu_torch.workloads.amorphous import (
+    AmorphousWorkloadConfig,
+    ProbeGridHook,
+    WorkloadDraws,
+    build_model,
+    pair_correlation,
+    probe_features_for_type,
+    probe_grid_positions,
+    probe_info_maps,
+    run_amorphous_protocols,
+    run_amorphous_workload,
+)

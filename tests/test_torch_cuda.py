@@ -8,14 +8,16 @@ on a machine without it:
 
 Tolerances: 2e-5 for float32 inputs, 2e-2 for bfloat16 inputs (the JAX
 package's Pallas tolerances); the kernels accumulate in float32 in another
-order than the plain versions. Attention scores scaled by 100 and
-gradients: 1e-4, as the JAX package's flash tests hold them.
+order than the plain versions. The density matrix's diagonal at small
+variance: 1e-6, as the JAX package holds its Pallas kernel. Attention
+scores scaled by 100 and gradients: 1e-4, as the JAX package's flash tests
+hold them; probe bounds 1e-4 nats.
 """
 
 import pytest
 import torch
 
-from dib_tpu_torch.ops import attention, density
+from dib_tpu_torch.ops import attention, density, info_bounds
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
@@ -76,6 +78,77 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="d <= 64"):
         density.mi_row_stats(*wide)
     assert density.mi_row_stats_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,d", [
+    (1024, 1024, 32),      # a microbench shape
+    (1000, 1000, 32),      # ragged rows and columns
+    (130, 33, 45),         # ragged everywhere, two chunks of d
+    (1, 1, 1),
+])
+def test_density_matrix_kernel_matches_plain_version_on_card(cuda_device, n, m, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    u = 2.0 * torch.randn(n, d, generator=gen, device=cuda_device)
+    mus = 2.0 * torch.randn(m, d, generator=gen, device=cuda_device)
+    logvars = 0.7 * torch.randn(m, d, generator=gen, device=cuda_device) - 1.0
+    before = density.log_density_mat_launches
+    got = density.log_density_matrix(u, mus, logvars)
+    torch.cuda.synchronize()
+    assert density.log_density_mat_launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (n, m)
+    torch.testing.assert_close(got, density.gaussian_log_density_mat(u, mus, logvars),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_density_matrix_kernel_keeps_the_diagonal_precise_on_card(cuda_device):
+    """u ~= mu at variance e^-6: the direct difference holds the diagonal to
+    1e-6, where the norm expansion would cancel."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    mus = 3.0 * torch.randn(96, 16, generator=gen, device=cuda_device)
+    logvars = torch.full((96, 16), -6.0, device=cuda_device)
+    u = mus + torch.randn(96, 16, generator=gen, device=cuda_device) * float(torch.exp(
+        torch.tensor(-3.0)))
+    got = torch.diagonal(density.log_density_matrix(u, mus, logvars))
+    want = torch.diagonal(density.gaussian_log_density_mat(u, mus, logvars))
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_density_matrix_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
+    u = torch.randn(8, 4, device=cuda_device)
+    before = density.log_density_mat_launches
+    with pytest.raises(TypeError, match="float32"):
+        density.log_density_matrix(u.double(), u.double(), u.double())
+    with pytest.raises(TypeError, match="float32"):
+        density.log_density_matrix(u.bfloat16(), u.bfloat16(), u.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        density.log_density_matrix(u.t().contiguous().t(), u, u)
+    with pytest.raises(ValueError, match="non-empty"):
+        density.log_density_matrix(u[:0], u, u)
+    assert density.log_density_mat_launches == before
+
+
+@pytest.mark.cuda
+def test_probe_call_at_the_flagship_shape_matches_plain_path_on_card(cuda_device):
+    """One probe call of the probe maps: a 100 x 100 grid against a bank of
+    512, d = 32, through the probe-mode kernel and through the plain path."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    probe_mus = 2.0 * torch.randn(10_000, 32, generator=gen, device=cuda_device)
+    probe_lv = 0.7 * torch.randn(10_000, 32, generator=gen, device=cuda_device) - 1.0
+    data_mus = 2.0 * torch.randn(512, 32, generator=gen, device=cuda_device)
+    data_lv = 0.7 * torch.randn(512, 32, generator=gen, device=cuda_device) - 1.0
+    u = probe_mus + torch.randn(10_000, 32, generator=gen, device=cuda_device) * torch.exp(
+        0.5 * probe_lv)
+    before = density.mi_row_stats_launches
+    got = info_bounds.mi_sandwich_probe(probe_mus, probe_lv, data_mus, data_lv, u=u)
+    assert density.mi_row_stats_launches == before + 1
+    cpu = [t.cpu() for t in (probe_mus, probe_lv, data_mus, data_lv, u)]
+    want = info_bounds.mi_sandwich_probe(*cpu[:4], u=cpu[4])
+    for g, w in zip(got, want):
+        assert g.shape == (10_000,) and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
 
 
 def _qkv(device, batch, seq, heads, dim, dtype=torch.float32, scale=1.0):
