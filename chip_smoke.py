@@ -12,7 +12,9 @@ Phases (any failure exits nonzero; nothing is caught and continued):
   2. build every CUDA kernel from ``dib_tpu_torch/csrc`` (one nvcc per
      source, all started together)
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it, and the flash kernel's gradients
+     shapes the main paths give it, and the flash kernel's gradients; for
+     bfloat16 inputs the flash kernel is the tensor-core one, whose SASS
+     must hold HMMA instructions (checked after the build)
   4. main path 1, serving: the flagship boolean-circuit model at full width
      behind an ``InferenceEngine`` and a ``MicroBatcher``, fed by client
      threads, then the per-channel MI query ``all_features_bounds``
@@ -221,14 +223,50 @@ def flash_bound_ms(b, s, h, d, dtype):
     return bound(4 * b * h * s * s * d, 3 * b * s * h * d * itemsize + b * s * h * d * 4, peak)
 
 
+def cuobjdump_path():
+    return shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+
 def print_registers(path):
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    cuobjdump = cuobjdump_path()
     if os.path.exists(cuobjdump):
         res = subprocess.run([cuobjdump, "-res-usage", str(path)],
                              capture_output=True, text=True, timeout=60)
         for line in res.stdout.splitlines():
             if "REG" in line or "Function" in line:
                 print("  " + line.strip())
+
+
+def check_tensor_cores(path):
+    """Counts the HMMA (tensor-core) instructions in the SASS of each
+    instantiation of the bf16 flash kernel, and fails if one has none; prints
+    each flash kernel's dynamic shared memory per block."""
+    import ctypes
+
+    from dib_tpu_torch.ops import _build
+
+    smem_bytes = _build.load("flash_attention").flash_attention_smem_bytes
+    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
+    print(f"  flash_attention dynamic shared memory per block: f32 kernel "
+          f"{smem_bytes(0)} bytes, bf16 kernel {smem_bytes(1)} bytes")
+    cuobjdump = cuobjdump_path()
+    if not os.path.exists(cuobjdump):
+        fail("cuobjdump not found: cannot show that the bf16 flash kernel uses the tensor cores")
+    res = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                         timeout=120, check=True)
+    hmma, function = {}, None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :", 1)[1].strip()
+            hmma[function] = 0
+        elif function is not None and "HMMA" in line:
+            hmma[function] += 1
+    bf16 = {name: n for name, n in hmma.items() if "flash_attention_bf16_kernel" in name}
+    for name, n in bf16.items():
+        print(f"  SASS {name}: {n} HMMA instructions")
+    if len(bf16) != 2 or min(bf16.values()) == 0:
+        fail(f"flash_attention_bf16_kernel: expected two instantiations with HMMA "
+             f"instructions in their SASS, found {bf16}")
 
 
 # --------------------------------------------------------------------------
@@ -270,28 +308,54 @@ def check_flash():
         ("B=4 S=1024 H=12 D=128 f32", attention_inputs(gen, 4, 1024, 12, 128), F32_TOL),
         ("ragged B=4 S=37 H=12 D=128 f32", attention_inputs(gen, 4, 37, 12, 128), F32_TOL),
         ("single key B=4 S=1 H=12 D=128 f32", attention_inputs(gen, 4, 1, 12, 128), F32_TOL),
-        ("B=4 S=1024 H=12 D=128 bf16",
-         attention_inputs(gen, 4, 1024, 12, 128, torch.bfloat16), BF16_TOL),
         ("q, k x 100 B=4 S=64 H=12 D=128 f32",
          attention_inputs(gen, 4, 64, 12, 128, scale=100.0), GRAD_TOL),
+        # bfloat16: the tensor-core kernel, its cp.async staging unless noted
+        ("B=4 S=1024 H=12 D=128 bf16",
+         attention_inputs(gen, 4, 1024, 12, 128, torch.bfloat16), BF16_TOL),
+        ("flagship B=32 S=50 H=12 D=128 bf16",
+         attention_inputs(gen, 32, 50, 12, 128, torch.bfloat16), BF16_TOL),
+        ("validation B=307 S=50 H=12 D=128 bf16",
+         attention_inputs(gen, 307, 50, 12, 128, torch.bfloat16), BF16_TOL),
+        ("ragged B=4 S=37 H=12 D=128 bf16",
+         attention_inputs(gen, 4, 37, 12, 128, torch.bfloat16), BF16_TOL),
+        ("single key B=4 S=1 H=12 D=128 bf16",
+         attention_inputs(gen, 4, 1, 12, 128, torch.bfloat16), BF16_TOL),
+        ("narrow B=4 S=70 H=12 D=16 bf16",
+         attention_inputs(gen, 4, 70, 12, 16, torch.bfloat16), BF16_TOL),
+        ("unaligned D=37 B=4 S=50 H=12 bf16 (synchronous staging)",
+         attention_inputs(gen, 4, 50, 12, 37, torch.bfloat16), BF16_TOL),
+        ("unaligned strides B=4 S=50 H=12 D=128 bf16 (synchronous staging)",
+         tuple(torch.nn.functional.pad(t, (0, 1))[..., 1:]
+               for t in attention_inputs(gen, 4, 50, 12, 128, torch.bfloat16)), BF16_TOL),
+        ("fused qkv view B=32 S=50 H=12 D=128 bf16",
+         tuple(torch.randn(32, 50, 3, 12, 128, generator=gen, device="cuda")
+               .to(torch.bfloat16).unbind(2)), BF16_TOL),
+        ("q, k x 100 B=4 S=64 H=12 D=128 bf16",
+         attention_inputs(gen, 4, 64, 12, 128, torch.bfloat16, scale=100.0), BF16_TOL),
     ]
     errors = {}
     for name, (q, k, v), tol in cases:
+        before = attention.flash_attention_launches
         got = attention.flash_self_attention(q, k, v)
         torch.cuda.synchronize()
+        if attention.flash_attention_launches != before + 1:
+            fail(f"flash_attention {name}: the call did not launch the kernel")
         errors[name] = compare(f"flash_attention {name}", [got],
                                [attention.flash_self_attention_reference(q, k, v)], tol)
     # gradients: the autograd function (kernel forward, blocked recompute
     # backward) against autograd through the plain version
-    q, k, v = (t.requires_grad_() for t in attention_inputs(gen, 4, 1024, 12, 128))
-    attention.flash_self_attention(q, k, v).square().sum().backward()
-    got = [t.grad.clone() for t in (q, k, v)]
-    for t in (q, k, v):
-        t.grad = None
-    attention.flash_self_attention_reference(q, k, v).square().sum().backward()
-    compare("flash_attention gradients dq, dk, dv B=4 S=1024 H=12 D=128 f32", got,
-            [t.grad for t in (q, k, v)], GRAD_TOL)
-    return errors[cases[0][0]]
+    for dtype, label, tol in ((torch.float32, "f32", GRAD_TOL),
+                              (torch.bfloat16, "bf16", BF16_TOL)):
+        q, k, v = (t.requires_grad_() for t in attention_inputs(gen, 4, 1024, 12, 128, dtype))
+        attention.flash_self_attention(q, k, v).square().sum().backward()
+        got = [t.grad.clone() for t in (q, k, v)]
+        for t in (q, k, v):
+            t.grad = None
+        attention.flash_self_attention_reference(q, k, v).square().sum().backward()
+        compare(f"flash_attention gradients dq, dk, dv B=4 S=1024 H=12 D=128 {label}", got,
+                [t.grad for t in (q, k, v)], tol)
+    return errors[cases[0][0]], errors["B=4 S=1024 H=12 D=128 bf16"]
 
 
 def density_inputs(rng, n, m, d):
@@ -859,6 +923,7 @@ def time_flash(card):
     for label, (b, s, h, d, dtype) in {
         "S=50": (32, 50, 12, 128, torch.float32),
         "S=1024": (4, 1024, 12, 128, torch.float32),
+        "S=50 bf16": (32, 50, 12, 128, torch.bfloat16),
         "S=1024 bf16": (4, 1024, 12, 128, torch.bfloat16),
     }.items():
         q, k, v = attention_inputs(gen, b, s, h, d, dtype)
@@ -873,6 +938,8 @@ def time_flash(card):
               f"{str(dtype).replace('torch.', '')}: kernel {kernel_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), roofline share {bound_ms / kernel_ms:.1%}")
+        print(f"profile [{card}] flash_attention {label}: "
+              f"{profile_breakdown(lambda: attention.flash_self_attention(q, k, v), top=1)}")
     return rows
 
 
@@ -931,10 +998,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(paths)} kernel sources in parallel")
     for path in paths.values():
         print_registers(path)
+    check_tensor_cores(paths["flash_attention"])
 
     # ---- 3. kernels vs plain versions on the card ----------------------
     probe_case = check_row_stats()
-    flash_err = check_flash()
+    flash_err, flash_bf16_err = check_flash()
     density_errs = check_log_density_mat()
 
     # ---- 4-9. main paths and their checks ------------------------------
@@ -1045,6 +1113,8 @@ def main() -> int:
         "launches": total["flash_attention"],
         **flash_err,
         **flash_rows["S=50"],
+        "bf16": {"shape": "B=4 S=1024 H=12 D=128", **flash_bf16_err,
+                 **flash_rows["S=1024 bf16"]},
     }, {
         "name": "log_density_mat",
         "route": "cuda",

@@ -10,15 +10,16 @@
 // max m, normaliser l, rescaled accumulator) over tiles of keys. As in the
 // TPU kernel the score is scaled after the q.k product, keys past S are
 // masked with the large-finite -1e30 (never -inf), the unnormalised
-// probabilities are rounded to the input type before the p.v product, and
-// the output is f32. Inputs are f32 or bf16 of one type; every sum is f32.
+// probabilities are rounded to the input type before the p.v product
+// while l sums them unrounded, and the output is f32 (acc / l). Inputs are
+// f32 or bf16 of one type; every sum is f32. Two kernels, one per type:
 //
+// flash_attention_kernel<float, 128> (f32 inputs, on the CUDA cores).
 // What bounds it on an H100: at the flagship shape (B = 32, S = 50, H = 12,
 // D = 128) bytes. The three inputs and the output are about 9.8 MB each
 // against 4 B H S^2 D = 0.49 GFLOP per call: ~12 us at 3.35 TB/s against
 // ~7 us at the f32 peak of 67 TFLOP/s. From a few hundred keys on it is
 // operations: at S = 1024 the same call is 25.8 GFLOP against 50 MB.
-//
 // Design: the TPU grid carried m, l and the accumulator in scratch across a
 // sequential key-block axis. Hopper blocks run in no order, so one block
 // owns one (batch*head, tile of 64 query rows) and walks every key tile
@@ -35,12 +36,62 @@
 // (row padding keeps the key reads free of bank conflicts). The 16 threads
 // that share a query row are 16 lanes of one warp, so the row max and row
 // sum of the online softmax are warp shuffles. The products run on the CUDA
-// cores in f32; mma.sync/wgmma, TMA and a pipelined load of the next tile
-// are later work. One width of tile (DP = 128) serves every D <= 128: the
-// columns past D are zero-filled in shared memory and never written out.
+// cores in f32; vector loads, cp.async and tiles sized for S = 50 are later
+// work. One width of tile (DP = 128) serves every D <= 128: the columns
+// past D are zero-filled in shared memory and never written out.
+//
+// flash_attention_bf16_kernel<ASYNC> (bf16 inputs, on the tensor cores).
+// What bounds it: operations from a few dozen keys on. At B = 4, S = 1024,
+// H = 12, D = 128 the call is 25.8 GFLOP, 26 us at the dense bf16 peak of
+// 989 TFLOP/s, against 63 MB of bf16 inputs and f32 output (19 us at
+// 3.35 TB/s); at the flagship's S = 50 it is bytes (24.6 MB, 7.3 us).
+// Design: FlashAttention-2's layout on mma.sync.m16n8k16 (bf16 in, f32
+// accumulate). 4 warps per block, one block per (batch*head, 128-query
+// tile); each warp owns 32 query rows as two m16 tiles, so every k and v
+// fragment that ldmatrix brings into registers feeds two products. That
+// halves the shared-memory reads per product against 16 rows per warp,
+// which measured slower on the card at every S >= 1024 shape tried: with
+// mma.sync, whose operands pass through registers, ldmatrix bandwidth and
+// not the tensor cores is the first limit. The grid is one-dimensional
+// with the query tile fastest, so the blocks that read one head's k and v
+// run together and find them in L2 (with the head fastest, as in the f32
+// kernel, k and v are re-read from device memory once per query tile as
+// soon as B H S D outgrows L2). The query tile is staged in shared memory
+// once; its A fragments are re-read by ldmatrix.x4 at each of the 8
+// k-steps of 16 over DP = 128 (held in registers for 32 rows they would
+// not fit beside the 128 accumulator registers). Key and value tiles of
+// 32 x 128 go through a 3-stage cp.async ring (16-byte copies, one commit
+// group per tile, wait_group 1): tiles t + 1 and t + 2 are in flight while
+// tile t computes, and one __syncthreads per tile both publishes tile t
+// and frees the stage of tile t - 1 for the next copy. Shared memory:
+// 34,816 bytes of q plus 3 x 17,408 of k and v = 87,040 bytes, two blocks
+// per SM. Every shared row is padded by 16 bytes (272-byte stride), so the
+// 8 row addresses of each ldmatrix phase fall on distinct banks. S = Q K^T
+// takes K's B fragments by ldmatrix from its row-major rows; O += P V
+// takes V's by ldmatrix.trans. The scores of a row sit in the 4 lanes of a
+// quad, so the row max is two __shfl_xor_sync (offsets 1, 2); each lane
+// keeps a partial l that is summed over the quad once, at the end. The
+// exponential is ex2.approx.ftz (the SFU's 2^x) with log2 e folded into
+// the scale: the max m is taken over the f32 products q . k, and p =
+// 2^(fma(q . k, scale2, -m scale2)) with scale2 = scale * log2 e, which is
+// exp(scale q . k - scale m) up to f32 rounding of the argument, with p
+// below 2^-126 flushed to zero (exp2f in its accurate form adds a range
+// fix-up to every one, which measured slower). p never leaves registers:
+// two adjacent n8 C fragments, rounded by __floats2bfloat162_rn
+// (round-to-nearest-even, as JAX's astype), are the A fragment of the p.v
+// product. 255 registers (the most a thread can have; two blocks of 128
+// threads fit one SM's 65,536) with 16 bytes spilled (-Xptxas -v). Inputs
+// whose base pointers are not 16-byte aligned, whose (b, s, h) strides are
+// not multiples of 8, or whose D is not a multiple of 8 take the same
+// kernel with ASYNC = false: the tiles are staged by a synchronous
+// per-element loop (zeros past S and D) and the rest is unchanged. At
+// B = 4, S = 1024, H = 12 the 384 blocks fill 1.45 waves of the card's
+// 2 x 132 block slots.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -55,13 +106,9 @@ constexpr int kPStride = kBlockK + kPad;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // The TPU kernel casts p to the input type before the p.v product.
 __device__ __forceinline__ float round_like(float x, const float*) { return x; }
-__device__ __forceinline__ float round_like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 template <int DP>
 constexpr int kKStride = DP + kPad;                // padded: key rows are read across lanes
@@ -249,6 +296,319 @@ cudaError_t launch(const void* q, const void* k, const void* v, float* out, int 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 kernel on the tensor cores (see the note at the top).
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMTiles = 2;                         // m16 tiles per warp: 32 query rows
+constexpr int kBlockRows = 16 * kMTiles * kMmaWarps;   // query rows per block (128)
+constexpr int kKeys = 32;                          // keys per tile
+constexpr int kStages = 3;                         // key/value tiles in flight
+constexpr int kHeadPad = 128;                      // DP: one tile width for every D <= 128
+constexpr int kRowElems = kHeadPad + 8;            // bf16 per shared row: 16 bytes of padding
+constexpr int kStageElems = 2 * kKeys * kRowElems; // one k tile and one v tile
+constexpr size_t kMmaSmemBytes =
+    sizeof(uint16_t) * (kBlockRows * kRowElems + kStages * kStageElems);
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes = 0 writes 16 zero bytes
+// and reads nothing.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// 2^x on the special-function unit; results below 2^-126 flush to zero.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// c[16 x 8, f32] += a[16 x 16, bf16, row-major] . b[16 x 8, bf16, column-major]
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16 (nearest even), `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Stages rows [row0, row0 + ROWS) of one (batch, head) slice into a padded
+// shared tile of bf16 bit patterns, zeros past `seq` rows and `d` columns.
+// ASYNC: 16-byte cp.async chunks, consecutive threads on consecutive chunks
+// of a row (needs d % 8 == 0, a 16-byte-aligned slice and a row stride that
+// is a multiple of 8); otherwise one element at a time, synchronously.
+template <bool ASYNC, int ROWS>
+__device__ __forceinline__ void stage_tile(uint16_t* dst, const uint16_t* src,
+                                           long long row_stride, int row0, int seq, int d) {
+  if constexpr (ASYNC) {
+    constexpr int kChunks = kHeadPad / 8;          // 16-byte chunks per row
+#pragma unroll
+    for (int i = 0; i < ROWS * kChunks / kMmaThreads; ++i) {
+      const int chunk = threadIdx.x + i * kMmaThreads;
+      const int r = chunk / kChunks;
+      const int c = (chunk % kChunks) * 8;
+      const int row = row0 + r;
+      const bool inside = row < seq && c < d;
+      cp_async_16(dst + r * kRowElems + c, inside ? src + row * row_stride + c : src,
+                  inside ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * kHeadPad; e += kMmaThreads) {
+      const int r = e / kHeadPad;
+      const int c = e % kHeadPad;
+      const int row = row0 + r;
+      dst[r * kRowElems + c] = (row < seq && c < d) ? src[row * row_stride + c] : uint16_t{0};
+    }
+  }
+}
+
+template <bool ASYNC>
+__device__ __forceinline__ void commit_stage() {
+  if constexpr (ASYNC) asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Every committed stage but the newest `PENDING` has landed (for this thread).
+template <bool ASYNC, int PENDING>
+__device__ __forceinline__ void wait_stages() {
+  if constexpr (ASYNC) asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+template <bool ASYNC>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                            const uint16_t* __restrict__ v, float* __restrict__ out, int seq,
+                            int heads, int d, long long q_sb, long long q_ss, long long q_sh,
+                            long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                            long long v_ss, long long v_sh, float scale) {
+  // the q tile [kBlockRows][kRowElems], then kStages stages, each a k tile
+  // [kKeys][kRowElems] and the v tile of the same keys
+  extern __shared__ __align__(16) uint16_t tiles[];
+  uint16_t* qs = tiles;
+  uint16_t* kv = tiles + kBlockRows * kRowElems;
+
+  // the query tiles of one (batch, head) are neighbours in the grid, so the
+  // blocks that read the same k and v run together and share them in L2
+  const int q_tiles = (seq + kBlockRows - 1) / kBlockRows;
+  const int b = blockIdx.x / q_tiles / heads;
+  const int h = blockIdx.x / q_tiles % heads;
+  const int q0 = blockIdx.x % q_tiles * kBlockRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int group = lane / 4;                      // fragment row (and row + 8)
+  const int quad = lane % 4;                       // fragment column pair
+  const uint16_t* k_bh = k + b * k_sb + h * k_sh;
+  const uint16_t* v_bh = v + b * v_sb + h * v_sh;
+  const int num_tiles = (seq + kKeys - 1) / kKeys;
+  const float scale2 = scale * kLog2e;
+
+  // prologue: q with key tile 0, then tiles 1 .. kStages - 2; one commit
+  // group per tile
+  stage_tile<ASYNC, kBlockRows>(qs, q + b * q_sb + h * q_sh, q_ss, q0, seq, d);
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    if (j < num_tiles) {
+      stage_tile<ASYNC, kKeys>(kv + j * kStageElems, k_bh, k_ss, j * kKeys, seq, d);
+      stage_tile<ASYNC, kKeys>(kv + j * kStageElems + kKeys * kRowElems, v_bh, v_ss, j * kKeys,
+                               seq, d);
+    }
+    commit_stage<ASYNC>();                         // possibly empty: keeps the count uniform
+  }
+
+  float o[kMTiles][kHeadPad / 8][4];               // C fragments of the output, 32 x 128
+  float m[kMTiles][2];                             // unscaled running max of rows group, group + 8
+  float l[kMTiles][2];                             // this lane's share of each row's sum
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt) {
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < kHeadPad / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
+  }
+
+  for (int t = 0; t < num_tiles; ++t) {
+    wait_stages<ASYNC, kStages - 2>();             // tile t has landed, later ones may not have
+    // every thread's copies of tile t are visible, and every warp is done
+    // with tile t - 1, whose stage the prefetch below overwrites
+    __syncthreads();
+    if (t + kStages - 1 < num_tiles) {
+      uint16_t* next = kv + (t + kStages - 1) % kStages * kStageElems;
+      stage_tile<ASYNC, kKeys>(next, k_bh, k_ss, (t + kStages - 1) * kKeys, seq, d);
+      stage_tile<ASYNC, kKeys>(next + kKeys * kRowElems, v_bh, v_ss, (t + kStages - 1) * kKeys,
+                               seq, d);
+    }
+    commit_stage<ASYNC>();
+    const uint16_t* kt = kv + t % kStages * kStageElems;
+    const uint16_t* vt = kt + kKeys * kRowElems;
+
+    // S = Q K^T for the warp's 32 rows x the tile's 32 keys; each k and q
+    // fragment feeds two products
+    float s[kMTiles][kKeys / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kHeadPad / 16; ++kk) {
+      uint32_t qa[kMTiles][4];                     // A fragments: rows of m tile mt, k-step kk
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt)
+        ldmatrix_x4(qa[mt], qs + ((warp * kMTiles + mt) * 16 + lane % 16) * kRowElems +
+                                kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < kKeys / 16; ++np) {
+        // matrices: keys +0..7 / +8..15 of the pair, columns +0..7 / +8..15 of the k-step
+        uint32_t kb[4];
+        ldmatrix_x4(kb, kt + (np * 16 + (lane / 16) * 8 + lane % 8) * kRowElems + kk * 16 +
+                            ((lane / 8) % 2) * 8);
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          mma_bf16(s[mt][2 * np], qa[mt], kb[0], kb[1]);
+          mma_bf16(s[mt][2 * np + 1], qa[mt], kb[2], kb[3]);
+        }
+      }
+    }
+
+    // online softmax; element e of s[mt][n] is row 16 mt + group + 8 (e / 2)
+    // of the warp, key t * kKeys + 8 n + 2 quad + e % 2. The max is taken
+    // over the unscaled products (the scale is positive), and p =
+    // 2^(s scale2 - m scale2) = e^(s scale - m scale), one FMA into the
+    // exponent.
+    const bool ragged = (t + 1) * kKeys > seq;
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+      float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = t * kKeys + n * 8 + 2 * quad + (e & 1);
+          if (ragged && key >= seq) s[mt][n][e] = kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][n][e]);
+        }
+      float m_scaled[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float corr = exp2_approx((m[mt][r] - mx[r]) * scale2);
+        m[mt][r] = mx[r];
+        m_scaled[r] = mx[r] * scale2;
+        l[mt][r] *= corr;
+#pragma unroll
+        for (int n = 0; n < kHeadPad / 8; ++n) {
+          o[mt][n][2 * r] *= corr;
+          o[mt][n][2 * r + 1] *= corr;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kKeys / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[mt][n][e] = exp2_approx(fmaf(s[mt][n][e], scale2, -m_scaled[e >> 1]));
+          l[mt][e >> 1] += s[mt][n][e];            // the unrounded p
+        }
+    }
+
+    // O += P V: the C fragments of n8 tiles 2 kk and 2 kk + 1, rounded to
+    // bf16, are the A fragment of k-step kk (keys 16 kk .. 16 kk + 15)
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      uint32_t pa[kMTiles][4];
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+        pa[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        pa[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        pa[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        pa[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < kHeadPad / 16; ++dp) {
+        // matrices: keys +0..7 / +8..15 of the k-step, columns +0..7 / +8..15 of the pair
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vt + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * kRowElems +
+                                  dp * 16 + (lane / 16) * 8);
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          mma_bf16(o[mt][2 * dp], pa[mt], vb[0], vb[1]);
+          mma_bf16(o[mt][2 * dp + 1], pa[mt], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+
+  // out [B, S, H, D] contiguous f32: acc / l for rows < S and columns < D
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float row_sum = l[mt][r];
+      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
+      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 2);
+      const int row = q0 + (warp * kMTiles + mt) * 16 + group + 8 * r;
+      if (row >= seq) continue;
+      float* o_row = out + ((static_cast<long long>(b) * seq + row) * heads + h) * d;
+#pragma unroll
+      for (int n = 0; n < kHeadPad / 8; ++n) {
+        const int col = n * 8 + 2 * quad;
+        if (col >= d) continue;
+        const float x0 = o[mt][n][2 * r] / row_sum;
+        const float x1 = o[mt][n][2 * r + 1] / row_sum;
+        if (d % 2 == 0) {
+          *reinterpret_cast<float2*>(o_row + col) = make_float2(x0, x1);
+        } else {
+          o_row[col] = x0;
+          if (col + 1 < d) o_row[col + 1] = x1;
+        }
+      }
+    }
+}
+
+template <bool ASYNC>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, float* out, int batch,
+                        int seq, int heads, int d, const long long* st, float scale,
+                        cudaStream_t stream) {
+  const auto kernel = flash_attention_bf16_kernel<ASYNC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMmaSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int grid = batch * heads * ((seq + kBlockRows - 1) / kBlockRows);
+  kernel<<<grid, kMmaThreads, kMmaSmemBytes, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), out, seq, heads, d, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v [batch, seq, heads, d] of one type (dtype 0: float32, 1: bfloat16),
@@ -270,9 +630,24 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0) {
     err = launch<float, 128>(q, k, v, out, batch, seq, heads, d, st, scale, s);
-  else
-    err = launch<__nv_bfloat16, 128>(q, k, v, out, batch, seq, heads, d, st, scale, s);
+  } else {
+    if (blocks * ((seq + kBlockRows - 1) / kBlockRows) > 2147483647LL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // the cp.async path needs every 16-byte chunk of a row aligned
+    const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                            reinterpret_cast<uintptr_t>(v);
+    bool aligned = d % 8 == 0 && bases % 16 == 0;
+    for (long long stride : st) aligned = aligned && stride % 8 == 0;
+    err = aligned ? launch_bf16<true>(q, k, v, out, batch, seq, heads, d, st, scale, s)
+                  : launch_bf16<false>(q, k, v, out, batch, seq, heads, d, st, scale, s);
+  }
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory of one block of each kernel (dtype 0: float32,
+// 1: bfloat16), in bytes.
+extern "C" int flash_attention_smem_bytes(int dtype) {
+  return static_cast<int>(dtype == 0 ? smem_bytes<128>() : kMmaSmemBytes);
 }

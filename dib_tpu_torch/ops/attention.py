@@ -9,8 +9,9 @@ inputs (``DIB_ATTN_SCORE_DTYPE``, default bfloat16, selects them).
 ``flash_self_attention`` replaces ``dib_tpu/ops/pallas_attention.py::
 flash_self_attention`` (the Pallas kernel ``_flash_kernel``): blockwise
 online-softmax attention that never forms the [S, S] score matrix. On a
-CUDA tensor it launches ``csrc/flash_attention.cu`` (see the note there for
-what bounds it on an H100); on a CPU tensor it takes the plain version
+CUDA tensor it launches ``csrc/flash_attention.cu``: float32 inputs on the
+CUDA cores, bfloat16 inputs on the tensor cores (see the note there for
+what bounds each on an H100); on a CPU tensor it takes the plain version
 ``flash_self_attention_reference``. Its backward is the blocked recompute
 of ``_flash_bwd_rule`` (blocked XLA in the JAX package, ``torch.matmul``
 here): the logsumexp is recomputed one query block at a time, so no [S, S]

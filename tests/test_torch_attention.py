@@ -84,8 +84,9 @@ def test_flash_gradients_match_jax():
         _close(got, w, GRAD_TOL)
 
 
-def test_flash_bfloat16_matches_jax_flash():
-    q, k, v = _qkv(37)
+@pytest.mark.parametrize("seq,dim", [(8, 16), (37, 16), (64, 16), (37, 128)])
+def test_flash_bfloat16_matches_jax_flash(seq, dim):
+    q, k, v = _qkv(seq, dim=dim)
     want = jax_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
                      block_q=BLOCK, block_k=BLOCK)
     got = flash_self_attention(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)))

@@ -11,7 +11,7 @@ package's Pallas tolerances); the kernels accumulate in float32 in another
 order than the plain versions. The density matrix's diagonal at small
 variance: 1e-6, as the JAX package holds its Pallas kernel. Attention
 scores scaled by 100 and gradients: 1e-4, as the JAX package's flash tests
-hold them; probe bounds 1e-4 nats.
+hold them, and 2e-2 for bfloat16 inputs; probe bounds 1e-4 nats.
 """
 
 import pytest
@@ -167,6 +167,12 @@ def _qkv(device, batch, seq, heads, dim, dtype=torch.float32, scale=1.0):
     (3, 70, 5, 16, torch.float32, 1.0, F32_TOL),        # narrow heads
     (2, 1024, 4, 128, torch.bfloat16, 1.0, BF16_TOL),
     (2, 64, 3, 128, torch.float32, 100.0, GRAD_TOL),    # huge scores stay finite
+    (32, 50, 12, 128, torch.bfloat16, 1.0, BF16_TOL),   # bfloat16: the tensor-core kernel
+    (2, 37, 3, 128, torch.bfloat16, 1.0, BF16_TOL),
+    (2, 1, 2, 128, torch.bfloat16, 1.0, BF16_TOL),
+    (3, 70, 5, 16, torch.bfloat16, 1.0, BF16_TOL),
+    (3, 50, 5, 37, torch.bfloat16, 1.0, BF16_TOL),      # D % 8 != 0: synchronous staging
+    (2, 64, 3, 128, torch.bfloat16, 100.0, BF16_TOL),
 ])
 def test_flash_kernel_matches_plain_version_on_card(cuda_device, batch, seq, heads, dim, dtype,
                                                     scale, tol):
@@ -181,28 +187,46 @@ def test_flash_kernel_matches_plain_version_on_card(cuda_device, batch, seq, hea
                                rtol=tol, atol=tol)
 
 
+def _strided_qkv(device, layout, dtype):
+    gen = torch.Generator(device=device).manual_seed(2)
+    if layout == "fused":      # q, k, v are strided views of one [B, S, 3, H, D]
+        return torch.randn(4, 50, 3, 12, 128, generator=gen, device=device).to(dtype).unbind(2)
+    # views that start 2 bytes past a 16-byte boundary, with (b, s, h)
+    # strides that are not multiples of 8: the bf16 kernel's synchronous staging
+    qkv = torch.randn(3, 2, 70, 3, 129, generator=gen, device=device).to(dtype)[..., 1:]
+    assert qkv[0].data_ptr() % 16 != 0 and qkv[0].stride(2) == 129
+    return qkv.unbind(0)
+
+
 @pytest.mark.cuda
-def test_flash_kernel_reads_strided_inputs(cuda_device):
-    """The fused-QKV layout: q, k, v are strided views of one [B, S, 3, H, D]."""
-    gen = torch.Generator(device=cuda_device).manual_seed(2)
-    qkv = torch.randn(4, 50, 3, 12, 128, generator=gen, device=cuda_device)
-    q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
+@pytest.mark.parametrize("layout,dtype,tol", [
+    ("fused", torch.float32, F32_TOL),
+    ("fused", torch.bfloat16, BF16_TOL),
+    ("unaligned", torch.bfloat16, BF16_TOL),
+])
+def test_flash_kernel_reads_strided_inputs(cuda_device, layout, dtype, tol):
+    q, k, v = _strided_qkv(cuda_device, layout, dtype)
     got = attention.flash_self_attention(q, k, v)
     want = attention.flash_self_attention_reference(q, k, v)
-    torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seq", [1024, 37])
-def test_flash_gradients_match_plain_autograd_on_card(cuda_device, seq):
-    q, k, v = (t.requires_grad_() for t in _qkv(cuda_device, 2, seq, 4, 128))
+@pytest.mark.parametrize("seq,dtype,tol", [
+    (1024, torch.float32, GRAD_TOL),
+    (37, torch.float32, GRAD_TOL),
+    (1024, torch.bfloat16, BF16_TOL),
+])
+def test_flash_gradients_match_plain_autograd_on_card(cuda_device, seq, dtype, tol):
+    q, k, v = (t.requires_grad_() for t in _qkv(cuda_device, 2, seq, 4, 128, dtype))
     attention.flash_self_attention(q, k, v).square().sum().backward()
     got = [t.grad.clone() for t in (q, k, v)]
     for t in (q, k, v):
         t.grad = None
     attention.flash_self_attention_reference(q, k, v).square().sum().backward()
     for g, t in zip(got, (q, k, v)):
-        torch.testing.assert_close(g, t.grad, rtol=GRAD_TOL, atol=GRAD_TOL)
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, t.grad, rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
