@@ -106,17 +106,33 @@ def compare(name, got, want, tol):
     return {"max_abs_err": worst_abs, "max_rel_err": worst_rel, "atol": tol, "rtol": tol}
 
 
-def channel_inputs(gen, g, n, d, dtype=torch.float32, m=None, probe=False):
+def channel_inputs(gen, g, n, d, dtype=torch.float32, m=None, probe=False, lv_range=None):
     """Random channel parameters; u drawn from its own row's Gaussian (the
-    diagonal-dominant regime of the sandwich bounds) unless ``probe``."""
+    diagonal-dominant regime of the sandwich bounds) unless ``probe``.
+    ``lv_range`` draws the log-variances uniformly from (low, high) instead."""
     m = n if m is None else m
     mus = 2.0 * torch.randn(g, m, d, generator=gen, device="cuda")
-    lv = 0.7 * torch.randn(g, m, d, generator=gen, device="cuda") - 1.0
+    if lv_range is None:
+        lv = 0.7 * torch.randn(g, m, d, generator=gen, device="cuda") - 1.0
+    else:
+        low, high = lv_range
+        lv = low + (high - low) * torch.rand(g, m, d, generator=gen, device="cuda")
     if probe:
         u = 2.0 * torch.randn(g, n, d, generator=gen, device="cuda")
     else:
         u = mus + torch.randn(g, n, d, generator=gen, device="cuda") * torch.exp(0.5 * lv)
     return u.to(dtype), mus.to(dtype), lv.to(dtype)
+
+
+def row_stats_plain(u, mus, lv, diagonal=True, groups=25):
+    """The plain row statistics, ``groups`` groups at a time: it forms a
+    [groups, N, M, d] tensor, 3.4 GB at N = M = 1024, d = 32."""
+    from dib_tpu_torch.ops import density
+
+    parts = [density.mi_row_stats_reference(u[i:i + groups], mus[i:i + groups],
+                                            lv[i:i + groups], diagonal=diagonal)
+             for i in range(0, u.shape[0], groups)]
+    return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
 
 
 def attention_inputs(gen, b, s, h, d, dtype=torch.float32, scale=1.0):
@@ -200,10 +216,15 @@ def bound(ops, nbytes, peak_flops):
 def row_stats_bound_ms(g, n, m, d, itemsize, diagonal=True):
     """The row statistics: per (row, column) pair 4 f32 operations per
     channel dim (difference, scale, square-accumulate as an FMA) plus the
-    normaliser (2) and, per reduction, max, subtract, exp and add (4); the
-    inputs read once and the outputs written once."""
-    reductions = 2 if diagonal else 1
-    ops = g * n * m * (4 * d + 2 + 4 * reductions)
+    normaliser (2); one online reduction, max, subtract, exp and add (4) per
+    entry it takes: the whole row in probe mode, j != i in square mode,
+    where each row then merges its diagonal in once (max, two subtracts,
+    two exps, add, log, add: 8). The inputs read once and the outputs
+    written once."""
+    if diagonal:
+        ops = g * n * m * (4 * d + 2) + 4 * g * n * (m - 1) + 8 * g * n
+    else:
+        ops = g * n * m * (4 * d + 2 + 4)
     nbytes = (g * n * d + 2 * g * m * d) * itemsize + (3 if diagonal else 1) * g * n * 4
     return bound(ops, nbytes, PEAK_F32_FLOPS)
 
@@ -285,16 +306,29 @@ def check_row_stats():
          channel_inputs(gen, 10, 1024, 32, torch.bfloat16), True, BF16_TOL),
         ("probe M=10000 N=512 d=32 f32",
          channel_inputs(gen, 1, 10000, 32, m=512, probe=True), False, F32_TOL),
+        # the beta sweep's grid (8 betas x 50 particles)
+        ("square G=400 N=1024 d=32 f32", channel_inputs(gen, 400, 1024, 32), True, F32_TOL),
+        ("probe M=1000 N=4096 d=32 f32",
+         channel_inputs(gen, 1, 1000, 32, m=4096, probe=True), False, F32_TOL),
+        # the diagonal on a tile's edges
+        ("two rows G=3 N=2 d=32 f32", channel_inputs(gen, 3, 2, 32), True, F32_TOL),
+        ("ragged G=3 N=33 d=32 f32", channel_inputs(gen, 3, 33, 32), True, F32_TOL),
+        ("widest G=4 N=300 d=64 f32", channel_inputs(gen, 4, 300, 64), True, F32_TOL),
+        # the untrained flagship's log-variances (PERF.md): the direct difference
+        ("logvar -26..20 G=4 N=1024 d=32 f32",
+         channel_inputs(gen, 4, 1024, 32, lv_range=(-26.0, 20.0)), True, F32_TOL),
     ]
     for name, (u, mus, lv), diagonal, tol in cases:
         got = density.mi_row_stats(u, mus, lv, diagonal=diagonal)
         torch.cuda.synchronize()
-        want = density.mi_row_stats_reference(u, mus, lv, diagonal=diagonal)
-        compare(f"mi_row_stats {name}", got, want, tol)
+        want = row_stats_plain(u, mus, lv, diagonal=diagonal)
+        splits = density.kernel_column_splits(u.shape[0], u.shape[1], mus.shape[1],
+                                              torch.cuda.current_device())
+        compare(f"mi_row_stats {name} ({splits} column split{'s' if splits > 1 else ''})",
+                got, want, tol)
     single = density.mi_row_stats(*cases[3][1])
     if not bool((single[2] == density.NEG_INF).all()):
         fail("N=1 off-diagonal row is not the large-finite mask value")
-    return cases[5][1]
 
 
 def check_flash():
@@ -964,6 +998,61 @@ def time_log_density_mat(card):
     return rows
 
 
+# (label, G, rows, columns, d, square mode): the MI query (G = 10 features),
+# the MI hook (50 particles), the beta sweep (8 betas x 50), the flagship's
+# probe grid against its bank, and a few rows against many columns. Probe
+# labels name M probes (the rows) against N data (the columns), as
+# ``ops/info_bounds.py::mi_sandwich_probe`` does.
+ROW_STATS_SHAPES = [
+    ("square G=10 N=1024 d=32", 10, 1024, 1024, 32, True),
+    ("square G=50 N=1024 d=32", 50, 1024, 1024, 32, True),
+    ("square G=400 N=1024 d=32", 400, 1024, 1024, 32, True),
+    ("probe M=10000 N=512 d=32", 1, 10_000, 512, 32, False),
+    ("probe M=1000 N=4096 d=32", 1, 1000, 4096, 32, False),
+]
+
+
+def host_us_per_call(fn, calls: int = 20, runs: int = 5) -> float:
+    """Median host-clock microseconds for one call of ``fn`` to return:
+    ``calls`` calls back to back, the card left to finish after the clock
+    stops (the calls only enqueue work)."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def time_row_stats(card):
+    """The row statistics kernel at ``ROW_STATS_SHAPES``: event time, the
+    wrapper's host time per call, the plain version and the bound; then one
+    call by kernel (the staging pass, the main kernel, the merge). It uses
+    only ``mi_row_stats`` and its plain version, so it times the
+    ``dib_tpu_torch`` that is first on the path, of this commit or another."""
+    from dib_tpu_torch.ops import density
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for label, g, n, m, d, diagonal in ROW_STATS_SHAPES:
+        u, mus, lv = channel_inputs(gen, g, n, d, m=m, probe=not diagonal)
+        def call():
+            return density.mi_row_stats(u, mus, lv, diagonal=diagonal)
+
+        ms = time_ms(call, inner=10)
+        host_us = host_us_per_call(call)
+        plain_ms = time_ms(lambda: row_stats_plain(u, mus, lv, diagonal=diagonal),
+                           runs=3, warmup=1)
+        bound_ms, bound_by = row_stats_bound_ms(g, n, m, d, u.element_size(), diagonal=diagonal)
+        print(f"timing [{card}] mi_row_stats {label} f32: kernel {ms:.4f} ms, host "
+              f"{host_us:.1f} us per call, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), roofline share {bound_ms / ms:.1%}")
+        print(f"profile [{card}] mi_row_stats {label}: {profile_breakdown(call, top=3)}")
+
+
 def time_probe_hook(card, driver):
     """One ProbeGridHook call on the trained flagship (rendering off)."""
     from dib_tpu_torch.workloads import ProbeGridHook
@@ -1001,7 +1090,7 @@ def main() -> int:
     check_tensor_cores(paths["flash_attention"])
 
     # ---- 3. kernels vs plain versions on the card ----------------------
-    probe_case = check_row_stats()
+    check_row_stats()
     flash_err, flash_bf16_err = check_flash()
     density_errs = check_log_density_mat()
 
@@ -1026,21 +1115,7 @@ def main() -> int:
     print(f"timing [{card}] mi_row_stats G={g} N={n} d={d} f32: kernel {kernel_ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
           f"roofline share {bound_ms / kernel_ms:.1%}")
-    wide = channel_inputs(torch.Generator(device="cuda").manual_seed(SEED + 6), 50, 1024, 32)
-    wide_ms = time_ms(lambda: density.mi_row_stats(*wide), inner=10)
-    wide_plain = time_ms(lambda: density.mi_row_stats_reference(*wide))
-    wide_bound, wide_by = row_stats_bound_ms(50, 1024, 1024, 32, 4)
-    print(f"timing [{card}] mi_row_stats G=50 N=1024 d=32 f32 (the training path's MI hook): "
-          f"kernel {wide_ms:.4f} ms, plain {wide_plain:.4f} ms, bound {wide_bound:.4f} ms "
-          f"({wide_by}), roofline share {wide_bound / wide_ms:.1%}")
-    pu, pm, pl = probe_case
-    probe_ms = time_ms(lambda: density.mi_row_stats(pu, pm, pl, diagonal=False), inner=10)
-    probe_plain_ms = time_ms(lambda: density.mi_row_stats_reference(pu, pm, pl, diagonal=False))
-    probe_bound, probe_by = row_stats_bound_ms(1, pu.shape[1], pm.shape[1], pu.shape[2], 4,
-                                               diagonal=False)
-    print(f"timing [{card}] mi_row_stats probe M={pu.shape[1]} N={pm.shape[1]} d={pu.shape[2]} "
-          f"f32: kernel {probe_ms:.4f} ms, plain {probe_plain_ms:.4f} ms, "
-          f"bound {probe_bound:.4f} ms ({probe_by})")
+    time_row_stats(card)
     flash_rows = time_flash(card)
 
     from dib_tpu_torch.train.hooks import all_features_bounds

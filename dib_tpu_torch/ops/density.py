@@ -13,13 +13,18 @@ Replaces: ``dib_tpu/ops/pallas_density.py::_row_stats_kernel`` (through
 probe mode (``diagonal=False``, an asymmetric [M probes, N data] input where
 only the full-row reduction exists).
 
-Bound on an H100: operations, not bytes. Each (row, column) pair costs about
-4d f32 operations on the CUDA cores (direct difference, scale,
-square-accumulate; tensor cores cannot form a direct difference) plus two
-exps, against O((N + M) d) bytes per group. The design therefore keeps u in
-registers, stages column tiles in shared memory read as warp broadcasts, and
-runs the whole column loop inside one block so no state crosses blocks; see
-the source note in the ``.cu`` file.
+Bound on an H100: operations, not bytes. Each (row, column) pair costs 3d
+FP32 instructions on the CUDA cores (direct difference, scale,
+square-accumulate; tensor cores cannot form a direct difference) plus about
+7 for its online logsumexp, against O((N + M) d) bytes per group. The design
+is an SGEMM-style micro-kernel: a staging pass writes the inputs as f32,
+channel-major and padded, with each column's exp(-lv/2) and log-variance
+sum computed once; 128 x 128 block tiles of 8 x 8 rows x columns per thread
+read distinct vectors from shared memory; one online reduction runs over
+the off-diagonal and the diagonal is merged in at the end; and when the
+grid would underfill the card the columns are split over blocks
+(:func:`column_splits`) and a merge pass combines them. See the source note
+in the ``.cu`` file.
 
 The second kernel, ``csrc/log_density_mat.cu`` behind
 :func:`log_density_matrix`, writes the whole [N, M] matrix. It replaces
@@ -37,6 +42,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -44,7 +51,10 @@ from dib_tpu_torch.ops import _build
 from dib_tpu_torch.ops.gaussian import gaussian_log_density_mat
 
 NEG_INF = -1e30   # large-finite mask value: inf - inf would give NaN
-MAX_DIM = 64      # widest channel the kernel's register tile holds
+MAX_DIM = 64      # widest channel the kernel's staging pass holds
+# Waves of blocks below which the kernel's columns are split (on an H100 a
+# target of 8 waves ran faster than one of 2 at G = 10 and 50; PERF.md).
+WAVES = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches made by ``mi_row_stats`` and ``log_density_matrix``; the
@@ -109,13 +119,62 @@ def mi_row_stats(u: torch.Tensor, mus: torch.Tensor, logvars: torch.Tensor,
     return out if grouped else tuple(o[0] for o in out)
 
 
+def column_splits(g: int, n: int, m: int, sm_count: int, tile: int = 128,
+                  blocks_per_sm: int = 2) -> int:
+    """How many ranges the kernel splits the columns into, for G groups of
+    N rows against M columns on a card of ``sm_count`` SMs.
+
+    One block reduces ``tile`` rows of a group over its range of
+    ``tile``-column tiles, in order, so the last wave of blocks sets the
+    tail. When the G * ceil(N / tile) row blocks fill at least ``WAVES``
+    waves of the card (``blocks_per_sm`` blocks per SM) the columns stay
+    whole; otherwise they are split just far enough to reach that, never
+    into more ranges than there are tiles, and evened so that every range
+    holds the same number of tiles (the last may hold fewer). A merge pass
+    then combines the ranges. The card path passes the built kernel's own
+    tile and blocks per SM (:func:`kernel_column_splits`); the defaults are
+    their values in ``csrc/mi_row_stats.cu``.
+    """
+    row_blocks = g * math.ceil(n / tile)
+    tiles = math.ceil(m / tile)
+    target = WAVES * blocks_per_sm * sm_count
+    if row_blocks >= target:
+        return 1
+    splits = min(tiles, math.ceil(target / row_blocks))
+    return math.ceil(tiles / math.ceil(tiles / splits))
+
+
 @functools.cache
-def _kernel_entry():
-    """The C entry point ``mi_row_stats_launch``, built and typed on first use."""
-    fn = _build.load("mi_row_stats").mi_row_stats_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kernel_column_splits(g: int, n: int, m: int, device_index: int) -> int:
+    """:func:`column_splits` on the card ``device_index`` with the built
+    kernel's tile and blocks per SM: the split a kernel call takes."""
+    kernel = _kernel_entry()
+    return column_splits(g, n, m, _sm_count(device_index), kernel.tile, kernel.blocks_per_sm)
+
+
+class _Kernel(NamedTuple):
+    launch: Callable[..., int]             # mi_row_stats_launch
+    workspace_floats: Callable[..., int]   # mi_row_stats_workspace_floats
+    tile: int
+    blocks_per_sm: int
+
+
+@functools.cache
+def _kernel_entry() -> _Kernel:
+    """The kernel's C entry points and geometry, built and typed on first use."""
+    lib = _build.load("mi_row_stats")
+    fn = lib.mi_row_stats_launch
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.mi_row_stats_workspace_floats
+    size.argtypes = [ctypes.c_int] * 5
+    size.restype = ctypes.c_longlong
+    return _Kernel(fn, size, lib.mi_row_stats_tile(), lib.mi_row_stats_blocks_per_sm())
 
 
 def _launch(u, mus, logvars, diagonal: bool):
@@ -132,15 +191,19 @@ def _launch(u, mus, logvars, diagonal: bool):
     if not 1 <= g <= 65535 or n == 0 or m == 0:
         raise ValueError(f"the kernel needs 1 <= G <= 65535 and non-empty rows, got "
                          f"G={g}, N={n}, M={m}")
+    kernel = _kernel_entry()
+    splits = kernel_column_splits(g, n, m, u.device.index)
+    workspace = torch.empty(kernel.workspace_floats(g, n, m, d, splits), dtype=torch.float32,
+                            device=u.device)
     full = torch.empty((g, n), dtype=torch.float32, device=u.device)
     diag = torch.empty_like(full) if diagonal else None
     off = torch.empty_like(full) if diagonal else None
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = _kernel_entry()(
+    err = kernel.launch(
         u.data_ptr(), mus.data_ptr(), logvars.data_ptr(),
         diag.data_ptr() if diagonal else None, full.data_ptr(),
-        off.data_ptr() if diagonal else None,
-        g, n, m, d, _DTYPE_CODES[u.dtype], int(diagonal), u.device.index or 0, stream)
+        off.data_ptr() if diagonal else None, workspace.data_ptr(), workspace.numel(),
+        g, n, m, d, splits, _DTYPE_CODES[u.dtype], int(diagonal), u.device.index, stream)
     if err != 0:
         raise RuntimeError(f"mi_row_stats kernel launch failed with CUDA error {err}")
     mi_row_stats_launches += 1

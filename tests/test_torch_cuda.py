@@ -31,15 +31,27 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(device, g, n, m, d, diagonal):
+def _inputs(device, g, n, m, d, diagonal, lv_range=None):
     gen = torch.Generator(device=device).manual_seed(0)
     mus = 2.0 * torch.randn(g, m, d, generator=gen, device=device)
-    logvars = 0.7 * torch.randn(g, m, d, generator=gen, device=device) - 1.0
+    if lv_range is None:
+        logvars = 0.7 * torch.randn(g, m, d, generator=gen, device=device) - 1.0
+    else:
+        low, high = lv_range
+        logvars = low + (high - low) * torch.rand(g, m, d, generator=gen, device=device)
     if diagonal:   # u near its own row's mean: the diagonal-dominant regime
         u = mus + torch.randn(g, m, d, generator=gen, device=device) * torch.exp(0.5 * logvars)
     else:
         u = 2.0 * torch.randn(g, n, d, generator=gen, device=device)
     return u, mus, logvars
+
+
+def _plain(u, mus, logvars, diagonal, groups=25):
+    """The plain version, ``groups`` groups at a time (it forms [G, N, M, d])."""
+    parts = [density.mi_row_stats_reference(u[i:i + groups], mus[i:i + groups],
+                                            logvars[i:i + groups], diagonal=diagonal)
+             for i in range(0, u.shape[0], groups)]
+    return tuple(torch.cat([p[k] for p in parts]) for k in range(3))
 
 
 @pytest.mark.cuda
@@ -50,6 +62,11 @@ def _inputs(device, g, n, m, d, diagonal):
     (1, 70, 70, 64, torch.float32, True),          # widest supported channel
     (4, 256, 256, 32, torch.bfloat16, True),
     (1, 2000, 512, 32, torch.float32, False),      # probe mode, M != N
+    (400, 1024, 1024, 32, torch.float32, True),    # the beta sweep's grid: columns whole
+    (1, 1000, 4096, 32, torch.float32, False),     # probe mode, columns split 32 ways
+    (3, 2, 2, 32, torch.float32, True),            # the diagonal on a tile's edges
+    (3, 33, 33, 32, torch.float32, True),
+    (4, 300, 300, 64, torch.float32, True),        # widest channel, columns split
 ])
 def test_kernel_matches_plain_version_on_card(cuda_device, g, n, m, d, dtype, diagonal):
     u, mus, logvars = (t.to(dtype) for t in _inputs(cuda_device, g, n, m, d, diagonal))
@@ -57,13 +74,24 @@ def test_kernel_matches_plain_version_on_card(cuda_device, g, n, m, d, dtype, di
     got = density.mi_row_stats(u, mus, logvars, diagonal=diagonal)
     torch.cuda.synchronize()
     assert density.mi_row_stats_launches == before + 1
-    want = density.mi_row_stats_reference(u, mus, logvars, diagonal=diagonal)
+    want = _plain(u, mus, logvars, diagonal)
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     for a, b in zip(got, want):
         assert a.dtype == torch.float32 and a.shape == (g, n)
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
     if n == 1:
         assert bool((got[2] == density.NEG_INF).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("diagonal", [True, False])
+def test_kernel_keeps_the_direct_difference_at_extreme_logvars_on_card(cuda_device, diagonal):
+    """Log-variances across -26..20, the untrained flagship's range: entries
+    reach |log p| ~ 1e12 while the diagonal stays O(1)."""
+    u, mus, logvars = _inputs(cuda_device, 4, 1024, 1024, 32, diagonal, lv_range=(-26.0, 20.0))
+    got = density.mi_row_stats(u, mus, logvars, diagonal=diagonal)
+    for a, b in zip(got, _plain(u, mus, logvars, diagonal)):
+        torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL)
 
 
 @pytest.mark.cuda
@@ -78,6 +106,15 @@ def test_kernel_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="d <= 64"):
         density.mi_row_stats(*wide)
     assert density.mi_row_stats_launches == before
+
+
+@pytest.mark.cuda
+def test_column_split_defaults_are_the_built_kernels_geometry(cuda_device):
+    index = torch.cuda.current_device()
+    sm_count = torch.cuda.get_device_properties(index).multi_processor_count
+    for g, n, m in [(10, 1024, 1024), (50, 1024, 1024), (1, 1000, 4096)]:
+        assert density.kernel_column_splits(g, n, m, index) == density.column_splits(
+            g, n, m, sm_count)
 
 
 @pytest.mark.cuda

@@ -8,6 +8,8 @@ rounding the two frameworks do at different places). The CUDA kernel itself
 runs only on the card and is tested in ``tests/test_torch_cuda.py``.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -98,6 +100,30 @@ def test_row_stats_rejects_what_it_cannot_take(rng):
     before = density.mi_row_stats_launches
     density.mi_row_stats(u, mus, logvars)
     assert density.mi_row_stats_launches == before   # the plain version never counts
+
+
+@pytest.mark.parametrize("g,n,m,sm_count,tile,per_sm,want", [
+    (400, 1024, 1024, 132, 128, 2, 1),    # the beta sweep's grid fills the card: columns whole
+    (50, 1024, 1024, 132, 128, 2, 4),     # the MI hook
+    (10, 1024, 1024, 132, 128, 2, 8),     # the MI query: as many ranges as tiles
+    (1, 10_000, 512, 132, 128, 2, 4),     # the flagship's probe grid
+    (1, 1000, 4096, 132, 128, 2, 32),     # few rows, many columns
+    (2, 1, 1, 132, 128, 2, 1),            # one tile cannot split
+    (8, 4096, 4096, 8, 128, 2, 1),        # a small card full at once
+    (3, 1000, 2000, 16, 128, 2, 8),       # evened: 16 tiles in 8 ranges of 2, not 11 ranges
+    (50, 1024, 1024, 132, 64, 2, 3),      # a smaller tile: more row blocks, fewer splits
+    (50, 1024, 1024, 132, 128, 1, 3),     # one block per SM: half the target
+])
+def test_column_splits_fill_the_card_within_the_column_tiles(g, n, m, sm_count, tile, per_sm,
+                                                             want):
+    splits = density.column_splits(g, n, m, sm_count, tile, per_sm)
+    assert splits == want
+    tiles = math.ceil(m / tile)
+    row_blocks = g * math.ceil(n / tile)
+    assert 1 <= splits <= tiles
+    assert (splits > 1) == (row_blocks < density.WAVES * per_sm * sm_count and tiles > 1)
+    per_range = math.ceil(tiles / splits)
+    assert (splits - 1) * per_range < tiles      # no range is left empty
 
 
 def test_sandwich_from_params_matches_jax(rng):
