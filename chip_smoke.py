@@ -14,7 +14,8 @@ Phases (any failure exits nonzero; nothing is caught and continued):
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, and the flash kernel's gradients; for
      bfloat16 inputs the flash kernel is the tensor-core one, whose SASS
-     must hold HMMA instructions (checked after the build)
+     must hold HMMA instructions, and for float32 inputs the CUDA-core one,
+     whose SASS must hold none (both checked after the build)
   4. main path 1, serving: the flagship boolean-circuit model at full width
      behind an ``InferenceEngine`` and a ``MicroBatcher``, fed by client
      threads, then the per-channel MI query ``all_features_bounds``
@@ -260,8 +261,9 @@ def print_registers(path):
 
 def check_tensor_cores(path):
     """Counts the HMMA (tensor-core) instructions in the SASS of each
-    instantiation of the bf16 flash kernel, and fails if one has none; prints
-    each flash kernel's dynamic shared memory per block."""
+    instantiation of the flash kernels: fails if a bf16 one has none or an
+    f32 one (exact f32 FMAs on the CUDA cores) has any. Prints each flash
+    kernel's dynamic shared memory per block."""
     import ctypes
 
     from dib_tpu_torch.ops import _build
@@ -283,11 +285,15 @@ def check_tensor_cores(path):
         elif function is not None and "HMMA" in line:
             hmma[function] += 1
     bf16 = {name: n for name, n in hmma.items() if "flash_attention_bf16_kernel" in name}
-    for name, n in bf16.items():
+    f32 = {name: n for name, n in hmma.items() if "flash_attention_kernel" in name}
+    for name, n in {**bf16, **f32}.items():
         print(f"  SASS {name}: {n} HMMA instructions")
     if len(bf16) != 2 or min(bf16.values()) == 0:
         fail(f"flash_attention_bf16_kernel: expected two instantiations with HMMA "
              f"instructions in their SASS, found {bf16}")
+    if len(f32) != 2 or max(f32.values()) != 0:
+        fail(f"flash_attention_kernel: expected two f32 instantiations without HMMA "
+             f"instructions in their SASS, found {f32}")
 
 
 # --------------------------------------------------------------------------
@@ -344,6 +350,14 @@ def check_flash():
         ("single key B=4 S=1 H=12 D=128 f32", attention_inputs(gen, 4, 1, 12, 128), F32_TOL),
         ("q, k x 100 B=4 S=64 H=12 D=128 f32",
          attention_inputs(gen, 4, 64, 12, 128, scale=100.0), GRAD_TOL),
+        ("narrow B=4 S=70 H=12 D=16 f32", attention_inputs(gen, 4, 70, 12, 16), F32_TOL),
+        ("unaligned D=37 B=4 S=50 H=12 f32 (synchronous staging)",
+         attention_inputs(gen, 4, 50, 12, 37), F32_TOL),
+        ("unaligned strides B=4 S=50 H=12 D=128 f32 (synchronous staging)",
+         tuple(torch.nn.functional.pad(t, (0, 1))[..., 1:]
+               for t in attention_inputs(gen, 4, 50, 12, 128)), F32_TOL),
+        ("fused qkv view B=32 S=50 H=12 D=128 f32",
+         torch.randn(32, 50, 3, 12, 128, generator=gen, device="cuda").unbind(2), F32_TOL),
         # bfloat16: the tensor-core kernel, its cp.async staging unless noted
         ("B=4 S=1024 H=12 D=128 bf16",
          attention_inputs(gen, 4, 1024, 12, 128, torch.bfloat16), BF16_TOL),
@@ -948,6 +962,11 @@ def run_microbench():
 # phase 10: timings
 
 def time_flash(card):
+    """The flash kernel at the main paths' shapes: event time, the wrapper's
+    host time per call, the plain version, SDPA and the bound; then one call
+    by kernel. It uses only ``flash_self_attention`` and its plain version,
+    so it times the ``dib_tpu_torch`` that is first on the path, of this
+    commit or another."""
     import torch.nn.functional as F
 
     from dib_tpu_torch.ops import attention
@@ -956,24 +975,28 @@ def time_flash(card):
     rows = {}
     for label, (b, s, h, d, dtype) in {
         "S=50": (32, 50, 12, 128, torch.float32),
+        "S=50 B=307": (307, 50, 12, 128, torch.float32),
         "S=1024": (4, 1024, 12, 128, torch.float32),
         "S=50 bf16": (32, 50, 12, 128, torch.bfloat16),
         "S=1024 bf16": (4, 1024, 12, 128, torch.bfloat16),
     }.items():
         q, k, v = attention_inputs(gen, b, s, h, d, dtype)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # [B, H, S, D]
-        kernel_ms = time_ms(lambda: attention.flash_self_attention(q, k, v), inner=10)
+        def call():
+            return attention.flash_self_attention(q, k, v)
+
+        kernel_ms = time_ms(call, inner=10)
+        host_us = host_us_per_call(call)
         plain_ms = time_ms(lambda: attention.flash_self_attention_reference(q, k, v))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), inner=10)
         bound_ms, bound_by = flash_bound_ms(b, s, h, d, dtype)
         rows[label] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by)
         print(f"timing [{card}] flash_attention B={b} S={s} H={h} D={d} "
-              f"{str(dtype).replace('torch.', '')}: kernel {kernel_ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), roofline share {bound_ms / kernel_ms:.1%}")
-        print(f"profile [{card}] flash_attention {label}: "
-              f"{profile_breakdown(lambda: attention.flash_self_attention(q, k, v), top=1)}")
+              f"{str(dtype).replace('torch.', '')}: kernel {kernel_ms:.4f} ms, host "
+              f"{host_us:.1f} us per call, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), roofline share {bound_ms / kernel_ms:.1%}")
+        print(f"profile [{card}] flash_attention {label}: {profile_breakdown(call, top=1)}")
     return rows
 
 

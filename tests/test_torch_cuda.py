@@ -209,6 +209,7 @@ def _qkv(device, batch, seq, heads, dim, dtype=torch.float32, scale=1.0):
     (2, 1, 2, 128, torch.bfloat16, 1.0, BF16_TOL),
     (3, 70, 5, 16, torch.bfloat16, 1.0, BF16_TOL),
     (3, 50, 5, 37, torch.bfloat16, 1.0, BF16_TOL),      # D % 8 != 0: synchronous staging
+    (3, 50, 5, 37, torch.float32, 1.0, F32_TOL),       # D % 4 != 0: synchronous staging
     (2, 64, 3, 128, torch.bfloat16, 100.0, BF16_TOL),
 ])
 def test_flash_kernel_matches_plain_version_on_card(cuda_device, batch, seq, heads, dim, dtype,
@@ -228,8 +229,8 @@ def _strided_qkv(device, layout, dtype):
     gen = torch.Generator(device=device).manual_seed(2)
     if layout == "fused":      # q, k, v are strided views of one [B, S, 3, H, D]
         return torch.randn(4, 50, 3, 12, 128, generator=gen, device=device).to(dtype).unbind(2)
-    # views that start 2 bytes past a 16-byte boundary, with (b, s, h)
-    # strides that are not multiples of 8: the bf16 kernel's synchronous staging
+    # views that start one element past a 16-byte boundary, with (b, s, h)
+    # strides that are not multiples of 4 (8 for bf16): the synchronous staging
     qkv = torch.randn(3, 2, 70, 3, 129, generator=gen, device=device).to(dtype)[..., 1:]
     assert qkv[0].data_ptr() % 16 != 0 and qkv[0].stride(2) == 129
     return qkv.unbind(0)
@@ -239,6 +240,7 @@ def _strided_qkv(device, layout, dtype):
 @pytest.mark.parametrize("layout,dtype,tol", [
     ("fused", torch.float32, F32_TOL),
     ("fused", torch.bfloat16, BF16_TOL),
+    ("unaligned", torch.float32, F32_TOL),
     ("unaligned", torch.bfloat16, BF16_TOL),
 ])
 def test_flash_kernel_reads_strided_inputs(cuda_device, layout, dtype, tol):
