@@ -10,7 +10,8 @@ Phases (any failure exits nonzero; nothing is caught and continued):
 
   1. print the card's name and power limit; switch TF32 off
   2. build every CUDA kernel from ``dib_tpu_torch/csrc`` (one nvcc per
-     source, all started together)
+     source, all started together); print each kernel's registers, and
+     fail unless the density kernels show no stack and no spills
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it, and the flash kernel's gradients; for
      bfloat16 inputs the flash kernel is the tensor-core one, whose SASS
@@ -231,10 +232,19 @@ def row_stats_bound_ms(g, n, m, d, itemsize, diagonal=True):
 
 
 def log_density_mat_bound_ms(n, m, d):
-    """The density matrix: per entry 3 f32 operations per channel dim
-    (difference, scale, square-accumulate as an FMA) plus the normaliser
-    (2); u, mu and lv read once and the [N, M] f32 matrix written once."""
-    return bound(n * m * (3 * d + 2), (n * d + 2 * m * d) * 4 + n * m * 4, PEAK_F32_FLOPS)
+    """The density matrix: per entry 4 f32 operations per channel dim
+    (difference 1, scale 1, square-accumulate as an FMA 2, the count the
+    peak's FMA takes and the row statistics use) plus the normaliser (2);
+    u, mu and lv read once and the [N, M] f32 matrix written once."""
+    return bound(n * m * (4 * d + 2), (n * d + 2 * m * d) * 4 + n * m * 4, PEAK_F32_FLOPS)
+
+
+def log_density_mat_issue_floor_ms(n, m, d):
+    """The density matrix at the FP32 issue rate: the direct difference
+    costs an FADD, an FMUL and an FFMA per (entry, channel), three issue
+    slots, and the card issues one f32 instruction per lane and cycle (half
+    the FMA peak's operations)."""
+    return 3 * n * m * d / (PEAK_F32_FLOPS / 2) * 1e3
 
 
 def flash_bound_ms(b, s, h, d, dtype):
@@ -250,13 +260,34 @@ def cuobjdump_path():
 
 
 def print_registers(path):
+    """Prints each kernel's registers, stack and local memory from
+    ``cuobjdump -res-usage`` and returns them as {function line: usage line}."""
     cuobjdump = cuobjdump_path()
-    if os.path.exists(cuobjdump):
-        res = subprocess.run([cuobjdump, "-res-usage", str(path)],
-                             capture_output=True, text=True, timeout=60)
-        for line in res.stdout.splitlines():
-            if "REG" in line or "Function" in line:
-                print("  " + line.strip())
+    if not os.path.exists(cuobjdump):
+        fail("cuobjdump not found: cannot read the kernels' resource usage")
+    res = subprocess.run([cuobjdump, "-res-usage", str(path)], capture_output=True, text=True,
+                         timeout=60, check=True)
+    usage, function = {}, None
+    for line in res.stdout.splitlines():
+        if "REG" in line or "Function" in line:
+            print("  " + line.strip())
+        if "Function" in line:
+            function = line.strip()
+        elif function is not None and "REG:" in line:
+            usage[function] = line.strip()
+            function = None
+    return usage
+
+
+def check_no_spills(usage, path, kernels):
+    """Fails unless each named kernel is in ``usage`` (from
+    :func:`print_registers`) with no stack and no local memory (no spills)."""
+    for kernel in kernels:
+        line = next((u for function, u in usage.items() if kernel in function), "")
+        fields = dict(field.split(":", 1) for field in line.split())
+        if fields.get("STACK") != "0" or fields.get("LOCAL") != "0":
+            fail(f"{kernel}: expected in {path.name} with no stack and no spills, "
+                 f"found {line or None}")
 
 
 def check_tensor_cores(path):
@@ -419,13 +450,16 @@ def density_inputs(rng, n, m, d):
 def check_log_density_mat():
     """The density matrix kernel at the microbench's shapes (square, ragged,
     probe), the flagship's probe shape, a ragged channel axis of two d
-    chunks, and the diagonal-precision case. Returns {shape: errors}."""
+    chunks, one wider than a ring stage, a row count past the old grid's
+    cap of 64 x 65,535 (about 50 MB of output, rows not 16-byte aligned),
+    and the diagonal-precision case. Returns {shape: errors}."""
     from dib_tpu_torch.ops import density
 
     rng = np.random.default_rng(SEED + 8)
     errors = {}
     for n, m, d in ((512, 512, 16), (1024, 1024, 32), (1000, 1000, 32), (4096, 4096, 32),
-                    (1000, 4096, 32), (10_000, 512, 32), (130, 33, 45), (1, 1, 1)):
+                    (1000, 4096, 32), (10_000, 512, 32), (130, 33, 45), (1, 1, 1),
+                    (1000, 1000, 100), (64 * 65_535 + 1, 3, 1)):
         u, mus, lv = density_inputs(rng, n, m, d)
         got = density.log_density_matrix(u, mus, lv)
         torch.cuda.synchronize()
@@ -1001,8 +1035,12 @@ def time_flash(card):
 
 
 def time_log_density_mat(card):
-    """The density kernel alone at each microbench shape, against its plain
-    version and its bound."""
+    """The density kernel at each microbench shape: event time, the
+    wrapper's host time per call, the plain version, the bound and the FP32
+    issue floor; then one call by kernel (the staging pass and the main
+    kernel apart). It uses only ``log_density_matrix``, its plain version
+    and ``GPU_SHAPES``, so it times the ``dib_tpu_torch`` that is first on
+    the path, of this commit or another."""
     from dib_tpu_torch.ops import density
     from dib_tpu_torch.scripts.bench_kernels import GPU_SHAPES
 
@@ -1010,14 +1048,22 @@ def time_log_density_mat(card):
     rows = {}
     for _, n, m, d in GPU_SHAPES:
         u, mus, lv = density_inputs(rng, n, m, d)
-        kernel_ms = time_ms(lambda: density.log_density_matrix(u, mus, lv), inner=10)
+        def call():
+            return density.log_density_matrix(u, mus, lv)
+
+        kernel_ms = time_ms(call, inner=10)
+        host_us = host_us_per_call(call)
         plain_ms = time_ms(lambda: density.gaussian_log_density_mat(u, mus, lv), runs=5)
         bound_ms, bound_by = log_density_mat_bound_ms(n, m, d)
+        floor_ms = log_density_mat_issue_floor_ms(n, m, d)
         rows[(n, m, d)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by)
+                               bound_by=bound_by, host_us=host_us)
         print(f"timing [{card}] log_density_mat N={n} M={m} d={d} f32: kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), roofline share {bound_ms / kernel_ms:.1%}")
+              f"{kernel_ms:.4f} ms, host {host_us:.1f} us per call, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), roofline share "
+              f"{bound_ms / kernel_ms:.1%}, FP32 issue floor {floor_ms:.4f} ms")
+        print(f"profile [{card}] log_density_mat N={n} M={m} d={d}: "
+              f"{profile_breakdown(call, top=2)}")
     return rows
 
 
@@ -1108,8 +1154,9 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build(["mi_row_stats", "flash_attention", "log_density_mat"])
     print(f"build: {time.perf_counter() - t0:.2f} s for {len(paths)} kernel sources in parallel")
-    for path in paths.values():
-        print_registers(path)
+    usage = {name: print_registers(path) for name, path in paths.items()}
+    check_no_spills(usage["log_density_mat"], paths["log_density_mat"],
+                    ("log_density_stage_kernel", "log_density_mat_kernel"))
     check_tensor_cores(paths["flash_attention"])
 
     # ---- 3. kernels vs plain versions on the card ----------------------

@@ -30,9 +30,14 @@ The second kernel, ``csrc/log_density_mat.cu`` behind
 :func:`log_density_matrix`, writes the whole [N, M] matrix. It replaces
 ``dib_tpu/ops/pallas_density.py::_density_kernel`` (through
 ``gaussian_log_density_mat_pallas``); the kernel microbench
-(``dib_tpu_torch.scripts.bench_kernels``) is the path that runs it. Its
-output is its only large traffic, so the design stores each entry once,
-coalesced, and reuses each staged input across a 64 x 64 tile.
+(``dib_tpu_torch.scripts.bench_kernels``) is the path that runs it. It is
+bound by the FP32 issue rate (3d instructions per entry), with the output
+written once under that. It is the same micro-kernel without the
+reduction: a staging pass writes u, mu and exp(-lv/2) channel-major and
+padded, with each column's normaliser, into a workspace once per call;
+one block per 128 x 128 tile, 8 x 8 entries per thread, takes any d
+through a cp.async ring, and each row leaves as coalesced float4
+streaming stores. The grid is one-dimensional, so N has no limit.
 
 Both wrappers take the plain PyTorch version only for CPU tensors; a CUDA
 tensor launches the kernel or raises.
@@ -232,13 +237,34 @@ def log_density_matrix(u: torch.Tensor, mus: torch.Tensor, logvars: torch.Tensor
     raise ValueError(f"log_density_matrix runs on cpu or cuda tensors, not {u.device.type}")
 
 
+class _DensityKernel(NamedTuple):
+    launch: Callable[..., int]             # log_density_mat_launch
+    workspace_floats: Callable[..., int]   # log_density_mat_workspace_floats
+    tile: int
+
+
 @functools.cache
-def _density_entry():
-    """The C entry point ``log_density_mat_launch``, built and typed on first use."""
-    fn = _build.load("log_density_mat").log_density_mat_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _density_entry() -> _DensityKernel:
+    """The density kernel's C entry points and tile, built and typed on first use."""
+    lib = _build.load("log_density_mat")
+    fn = lib.log_density_mat_launch
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 4 + [ctypes.c_int]
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    size = lib.log_density_mat_workspace_floats
+    size.argtypes = [ctypes.c_longlong] * 3
+    size.restype = ctypes.c_longlong
+    return _DensityKernel(fn, size, lib.log_density_mat_tile())
+
+
+def log_density_mat_tile() -> int:
+    """The built density kernel's output tile (rows and columns)."""
+    return _density_entry().tile
+
+
+@functools.lru_cache(maxsize=64)
+def _density_workspace_floats(n: int, m: int, d: int) -> int:
+    return _density_entry().workspace_floats(n, m, d)
 
 
 def _launch_density(u, mus, logvars):
@@ -250,13 +276,14 @@ def _launch_density(u, mus, logvars):
                         f"{u.dtype}, {mus.dtype}, {logvars.dtype}")
     if not (u.is_contiguous() and mus.is_contiguous() and logvars.is_contiguous()):
         raise ValueError("the kernel takes contiguous inputs")
-    if n == 0 or m == 0 or d == 0 or n > 64 * 65535:
-        raise ValueError(f"the kernel needs 1 <= N <= {64 * 65535} and non-empty M and d, "
-                         f"got N={n}, M={m}, d={d}")
-    out = torch.empty((n, m), dtype=torch.float32, device=u.device)
+    if n == 0 or m == 0 or d == 0:
+        raise ValueError(f"the kernel needs non-empty N, M and d, got N={n}, M={m}, d={d}")
+    workspace = u.new_empty(_density_workspace_floats(n, m, d))   # float32, on u's card
+    out = u.new_empty((n, m))
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = _density_entry()(u.data_ptr(), mus.data_ptr(), logvars.data_ptr(), out.data_ptr(),
-                           n, m, d, u.device.index or 0, stream)
+    err = _density_entry().launch(u.data_ptr(), mus.data_ptr(), logvars.data_ptr(),
+                                  out.data_ptr(), workspace.data_ptr(), workspace.numel(), n, m,
+                                  d, u.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"log_density_mat kernel launch failed with CUDA error {err}")
     log_density_mat_launches += 1

@@ -38,12 +38,12 @@ import numpy as np
 import torch
 
 from dib_tpu_torch.device import card_line, resolve_device
-from dib_tpu_torch.ops.density import NEG_INF, log_density_matrix, mi_row_stats
+from dib_tpu_torch.ops.density import (NEG_INF, log_density_mat_tile, log_density_matrix,
+                                       mi_row_stats)
 from dib_tpu_torch.ops.gaussian import gaussian_log_density_mat
 from dib_tpu_torch.ops.info_bounds import mi_row_stats_blocked
 
 METRIC = "mi_kernel_bench"
-TILE = 64            # the density kernel's output tile
 PARITY_TOL = 2e-4    # rtol = atol, as the JAX script holds its arms
 
 # (kind, rows, cols, d): rows == cols for 'square'; ragged sizes exercise
@@ -110,7 +110,9 @@ def time_variant(fn, args, reps: int, device: torch.device) -> float:
 
 
 def bench_shape(kind: str, rows: int, cols: int, d: int, reps: int, device: torch.device,
-                rng: np.random.Generator) -> dict:
+                rng: np.random.Generator, tile: int | None) -> dict:
+    """One row of the record; ``tile`` is the density kernel's output tile,
+    ``None`` where no kernel runs (the row's ``tile_divisible`` is then null)."""
     def tensor(a):
         return torch.as_tensor(a.astype(np.float32), device=device)
 
@@ -129,7 +131,7 @@ def bench_shape(kind: str, rows: int, cols: int, d: int, reps: int, device: torc
             g, w, rtol=PARITY_TOL, atol=PARITY_TOL) for g, w in zip(got, want))
     row = {
         "kind": kind, "rows": rows, "cols": cols, "d": d,
-        "tile_divisible": rows % TILE == 0 and cols % TILE == 0,
+        "tile_divisible": None if tile is None else rows % tile == 0 and cols % tile == 0,
         "variants": {name: {"seconds": s} for name, s in seconds.items()},
         "parity": {"max_abs_err": max(errors.values()), "per_variant": errors,
                    "tol": PARITY_TOL, "ok": ok},
@@ -146,7 +148,8 @@ def run(device=None, reps: int = 3) -> dict:
     on_gpu = device.type == "cuda"
     shapes = GPU_SHAPES if on_gpu else CPU_SHAPES
     rng = np.random.default_rng(0)
-    rows = [bench_shape(kind, r, c, d, reps, device, rng) for kind, r, c, d in shapes]
+    tile = log_density_mat_tile() if on_gpu else None
+    rows = [bench_shape(kind, r, c, d, reps, device, rng, tile) for kind, r, c, d in shapes]
     headline = next((row.get("speedup_fused_vs_plain_full")
                      for row in reversed(rows) if row["kind"] == "square"), None)
     return {

@@ -123,6 +123,8 @@ def test_column_split_defaults_are_the_built_kernels_geometry(cuda_device):
     (1000, 1000, 32),      # ragged rows and columns
     (130, 33, 45),         # ragged everywhere, two chunks of d
     (1, 1, 1),
+    (300, 200, 100),       # a channel axis wider than one ring stage
+    (64 * 65535 + 1, 3, 1),   # past the old grid's row cap; rows not 16-byte aligned
 ])
 def test_density_matrix_kernel_matches_plain_version_on_card(cuda_device, n, m, d):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
@@ -164,6 +166,8 @@ def test_density_matrix_wrapper_raises_on_what_the_kernel_does_not_take(cuda_dev
         density.log_density_matrix(u.t().contiguous().t(), u, u)
     with pytest.raises(ValueError, match="non-empty"):
         density.log_density_matrix(u[:0], u, u)
+    with pytest.raises(ValueError, match="non-empty"):
+        density.log_density_matrix(u[:, :0], u[:, :0], u[:, :0])
     assert density.log_density_mat_launches == before
 
 

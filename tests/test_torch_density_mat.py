@@ -37,6 +37,7 @@ def random_params(rng, n, m, d):
     (50, 70, 12, 32, 32),      # both axes ragged
     (8, 8, 4, 128, 128),       # one tile larger than the problem
     (130, 33, 16, 64, 32),     # ragged rows and columns
+    (40, 24, 100, 32, 32),     # a channel axis wider than the card kernel's ring stage
 ])
 def test_density_matrix_matches_pallas_kernel(rng, n, m, d, bm, bn):
     u, mus, logvars = random_params(rng, n, m, d)
