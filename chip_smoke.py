@@ -13,7 +13,8 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      source, all started together); print each kernel's registers, and
      fail unless the density kernels show no stack and no spills
   3. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the main paths give it, and the flash kernel's gradients; for
+     shapes the main paths give it (the sweep's too: flash at B = 8 x 32
+     and 8 x 1024), and the flash kernel's gradients; for
      bfloat16 inputs the flash kernel is the tensor-core one, whose SASS
      must hold HMMA instructions, and for float32 inputs the CUDA-core one,
      whose SASS must hold none (both checked after the build)
@@ -36,16 +37,27 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      512-particle bank, rendering off); the only cuts are the steps and the
      hooks' cadences. Launch counts read around it; one probe call held to
      the plain path; every grid finite inside the g(r) mask
-  9. main path 4, the kernel microbench
+  9. main path 5, the beta sweep: ``run_amorphous_sweep`` at full width
+     (8 endpoints, each member the flagship with flash attention, the
+     ``SweepInfoPerFeatureHook`` at 1024 x 4, rendering off, 1024
+     validation rows so each validation pass is 8 x 1024 sets); the only
+     cuts are steps_per_epoch 50 -> 5 and chunk_epochs 25 -> 2 over 4
+     epochs. Launch counts read around it (flash 6 per step and per
+     validation pass whatever R is; ``mi_row_stats`` 4 per hook call at
+     G = 400); the hook's kernel path held to the plain path; replicas 0
+     and 7 held to a serial trainer from the same weights, endpoints and
+     seeds, beside a serial witness run with dense attention
+ 10. main path 4, the kernel microbench
      (``dib_tpu_torch.scripts.bench_kernels``, the path of the log-density
      matrix kernel): its record on one line, every arm held to the plain
      materialize-and-reduce arm
- 10. CUDA-event timings of the kernels, their plain versions and the
+ 11. CUDA-event timings of the kernels, their plain versions and the
      library call beside their bounds; the MI query, predict, the training
      step (flash and dense), the MI hook, the probe hook and the driver;
-     profiler breakdowns
- 11. one JSON line listing each ported kernel
- 12. the last line: ``{"ok": true, "device": {...}}``
+     the sweep step beside 8 serial steps, the sweep's MI hook beside 8
+     serial hooks, the validation pass's peak memory; profiler breakdowns
+ 12. one JSON line listing each ported kernel
+ 13. the last line: ``{"ok": true, "device": {...}}``
 
 Without a CUDA device it exits nonzero before printing any result.
 """
@@ -81,6 +93,15 @@ TRAIN_STEPS, STEPS_PER_EPOCH, EVAL_EVERY = 40, 10, 10   # cut from 25,000 steps
 # the driver: 40 steps of one epoch each (the reference's per-step beta), MI
 # bounds every 10 and probe maps every 20 steps (cut from 250 and 1000)
 DRIVER_STEPS, DRIVER_EVAL_EVERY, DRIVER_PROBE_EVERY = 40, 10, 20
+# the sweep: 4 epochs of 5 steps (cut from 50), the MI hook every 2 (from 25)
+SWEEP_EPOCHS, SWEEP_STEPS_PER_EPOCH, SWEEP_CHUNK = 4, 5, 2
+# synthetic neighbourhoods, 15% held out: 1024 validation rows, so each
+# validation pass is the north star's 8 x 1024 sets (flash at B = 8192)
+SWEEP_NEIGHBORHOODS = 6827
+SWEEP_TOL = 1e-4          # a sweep replica vs the serial trainer, relative
+SWEEP_FLIPS = 3           # ... its accuracy rows: predictions flipped per epoch
+SWEEP_BIAS_TOL = 5e-2     # ... each bias leaf, relative to its norm
+SWEEP_HELD = (0, 7)       # the replicas held to the serial trainer
 # H100 SXM published peaks: f32 on the CUDA cores, dense bf16 tensor cores,
 # HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -376,6 +397,10 @@ def check_flash():
         ("flagship B=32 S=50 H=12 D=128 f32", attention_inputs(gen, 32, 50, 12, 128), F32_TOL),
         ("validation B=307 S=50 H=12 D=128 f32",
          attention_inputs(gen, 307, 50, 12, 128), F32_TOL),
+        ("sweep step B=8x32 S=50 H=12 D=128 f32",
+         attention_inputs(gen, 8 * 32, 50, 12, 128), F32_TOL),
+        ("sweep validation B=8x1024 S=50 H=12 D=128 f32",
+         attention_inputs(gen, 8 * 1024, 50, 12, 128), F32_TOL),
         ("B=4 S=1024 H=12 D=128 f32", attention_inputs(gen, 4, 1024, 12, 128), F32_TOL),
         ("ragged B=4 S=37 H=12 D=128 f32", attention_inputs(gen, 4, 37, 12, 128), F32_TOL),
         ("single key B=4 S=1 H=12 D=128 f32", attention_inputs(gen, 4, 1, 12, 128), F32_TOL),
@@ -424,15 +449,16 @@ def check_flash():
                                [attention.flash_self_attention_reference(q, k, v)], tol)
     # gradients: the autograd function (kernel forward, blocked recompute
     # backward) against autograd through the plain version
-    for dtype, label, tol in ((torch.float32, "f32", GRAD_TOL),
-                              (torch.bfloat16, "bf16", BF16_TOL)):
-        q, k, v = (t.requires_grad_() for t in attention_inputs(gen, 4, 1024, 12, 128, dtype))
+    for b, s, dtype, label, tol in ((4, 1024, torch.float32, "f32", GRAD_TOL),
+                                    (4, 1024, torch.bfloat16, "bf16", BF16_TOL),
+                                    (8 * 32, 50, torch.float32, "f32 (sweep step)", GRAD_TOL)):
+        q, k, v = (t.requires_grad_() for t in attention_inputs(gen, b, s, 12, 128, dtype))
         attention.flash_self_attention(q, k, v).square().sum().backward()
         got = [t.grad.clone() for t in (q, k, v)]
         for t in (q, k, v):
             t.grad = None
         attention.flash_self_attention_reference(q, k, v).square().sum().backward()
-        compare(f"flash_attention gradients dq, dk, dv B=4 S=1024 H=12 D=128 {label}", got,
+        compare(f"flash_attention gradients dq, dk, dv B={b} S={s} H=12 D=128 {label}", got,
                 [t.grad for t in (q, k, v)], tol)
     return errors[cases[0][0]], errors["B=4 S=1024 H=12 D=128 bf16"]
 
@@ -966,7 +992,257 @@ def drive_amorphous():
 
 
 # --------------------------------------------------------------------------
-# phase 9: main path 4, the kernel microbench
+# phase 9: main path 5, the beta sweep
+
+def drive_sweep():
+    from dib_tpu_torch.data import get_dataset
+    from dib_tpu_torch.ops import attention, density, info_bounds
+    from dib_tpu_torch.ops.schedules import log_annealed_beta
+    from dib_tpu_torch.parallel import SweepInfoPerFeatureHook
+    from dib_tpu_torch.workloads import AmorphousWorkloadConfig, run_amorphous_sweep
+
+    config = dataclasses.replace(AmorphousWorkloadConfig(),
+                                 num_steps=SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH)
+    hook = SweepInfoPerFeatureHook(config.mi_eval_batch_size, config.mi_eval_batches, seed=SEED)
+    print(f"sweep: run_amorphous_sweep, 8 endpoints np.logspace(-2, 0, 8), each member the "
+          f"flagship at full width with use_flash=True, SweepInfoPerFeatureHook at "
+          f"{config.mi_eval_batch_size} x {config.mi_eval_batches}, {SWEEP_NEIGHBORHOODS} "
+          f"synthetic neighbourhoods (1024 validation rows); cut: steps_per_epoch 50 -> "
+          f"{SWEEP_STEPS_PER_EPOCH}, chunk_epochs 25 -> {SWEEP_CHUNK}, {SWEEP_EPOCHS} epochs "
+          f"({config.num_steps} steps); render=False")
+    groups = []
+    plain_call = info_bounds.mi_row_stats
+
+    def counting(u, mus, logvars, diagonal=True):
+        groups.append(u.shape[0])
+        return plain_call(u, mus, logvars, diagonal)
+
+    density.mi_row_stats_launches = 0
+    attention.flash_attention_launches = 0
+    density.log_density_mat_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    info_bounds.mi_row_stats = counting
+    try:
+        result = run_amorphous_sweep(SEED, config, steps_per_epoch=SWEEP_STEPS_PER_EPOCH,
+                                     chunk_epochs=SWEEP_CHUNK, hooks=[hook], render=False,
+                                     model_overrides={"use_flash": True},
+                                     num_synthetic_neighborhoods=SWEEP_NEIGHBORHOODS)
+    finally:
+        info_bounds.mi_row_stats = plain_call
+    torch.cuda.synchronize()
+    launches = {"mi_row_stats": density.mi_row_stats_launches,
+                "flash_attention": attention.flash_attention_launches,
+                "log_density_mat": density.log_density_mat_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model = result["states"].params["model"]
+    ends, records = result["beta_ends"], result["records"]
+    replicas = len(ends)
+    n_params = sum(p.numel() for p in model.parameters())
+    steps = SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH
+    calls = len(hook.records)
+    print(f"main path launches (sweep, R={replicas}, {steps} steps, {SWEEP_EPOCHS} validation "
+          f"passes, {calls} MI hook calls): {json.dumps(launches)}; mi_row_stats groups per "
+          f"call {groups}; peak device memory {peak_gb:.3f} GB")
+    if replicas != 8 or model.replicas != 8 or n_params != 8 * 1_293_505:
+        fail(f"sweep: {replicas} members of {n_params / max(replicas, 1)} parameters, "
+             f"expected 8 of 1,293,505")
+    want_flash = len(model.aggregator.blocks) * (steps + SWEEP_EPOCHS)
+    if launches["flash_attention"] != want_flash:
+        fail(f"sweep: {launches['flash_attention']} flash launches, expected {want_flash} "
+             f"(6 per step and per validation pass, whatever R is)")
+    if calls != SWEEP_EPOCHS // SWEEP_CHUNK or \
+            launches["mi_row_stats"] != config.mi_eval_batches * calls or \
+            groups != [replicas * config.number_particles] * launches["mi_row_stats"]:
+        fail(f"sweep: {calls} MI hook calls, {launches['mi_row_stats']} mi_row_stats launches "
+             f"over groups {groups}; expected {config.mi_eval_batches} per call at "
+             f"G = {replicas * config.number_particles}")
+    epochs = torch.arange(SWEEP_EPOCHS)
+    for r, (end, record) in enumerate(zip(ends, records)):
+        for name in ("loss", "val_loss", "metric", "val_metric", "kl_per_feature"):
+            if not np.isfinite(getattr(record, name)).all():
+                fail(f"sweep: replica {r} has non-finite {name}")
+        want_beta = log_annealed_beta(epochs, config.beta_start, float(end),
+                                      SWEEP_EPOCHS).numpy()
+        if not np.allclose(record.beta, want_beta, rtol=1e-6, atol=0.0) or \
+                not (np.diff(record.beta) > 0).all():
+            fail(f"sweep: replica {r} beta {record.beta} does not follow its endpoint {end}")
+    bounds = np.stack([rec["bounds"] for rec in hook.records])     # [T, R, P, 2] nats
+    if bounds.shape != (calls, replicas, config.number_particles, 2) or \
+            not np.isfinite(bounds).all() or \
+            not (bounds[..., 0] <= bounds[..., 1] + BOUNDS_TOL).all() or \
+            not (bounds[..., 0] <= math.log(config.mi_eval_batch_size) + BOUNDS_TOL).all():
+        fail(f"sweep: MI bounds of shape {bounds.shape}, non-finite or out of order")
+    bundle = get_dataset("amorphous_particles", number_particles_to_use=config.number_particles,
+                         num_synthetic_neighborhoods=SWEEP_NEIGHBORHOODS)
+    if len(bundle.x_valid) != config.train_config().max_val_points:
+        fail(f"sweep: {len(bundle.x_valid)} validation rows, expected "
+             f"{config.train_config().max_val_points}")
+    hook_err, hook_upper_err = hold_sweep_hook(model, bundle, config)
+    serial_errs = hold_sweep_replicas(result, bundle, config)
+    print(f"sweep: {steps} steps x {replicas} replicas in {result['wall_clock_s']:.3f} s (host "
+          f"clock, one run, first call); final loss per replica "
+          f"{[round(float(r.loss[-1]), 6) for r in records]}; MI hook at epochs "
+          f"{hook.epochs.tolist()}, mean lower bound per replica (nats) "
+          f"{bounds[-1, ..., 0].mean(-1).round(5).tolist()}; hook kernel vs plain path lower "
+          f"bounds max_abs_err={hook_err:.3e} tol={BOUNDS_TOL}, upper bounds max_abs_err="
+          f"{hook_upper_err:.3e}; {serial_errs}")
+    return dict(config=config, result=result, hook=hook, bundle=bundle, launches=launches,
+                peak_gb=peak_gb)
+
+
+def hold_sweep_hook(model, bundle, config):
+    """One SweepInfoPerFeatureHook measurement on the trained sweep: the
+    kernel path against the plain row statistics on the same draws, 25
+    groups at a time. Returns the largest differences (nats) of the lower
+    and of the upper bounds."""
+    from dib_tpu_torch.ops import density
+    from dib_tpu_torch.ops.gaussian import reparameterize
+    from dib_tpu_torch.ops.info_bounds import sandwich_from_row_stats
+    from dib_tpu_torch.parallel.sweep_hooks import sweep_features_bounds
+
+    rows = torch.as_tensor(bundle.x_valid, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    batch, batches, replicas = config.mi_eval_batch_size, config.mi_eval_batches, model.replicas
+    idx = torch.randint(0, len(rows), (batches, replicas, batch), generator=gen, device="cuda")
+    plain_lower, plain_upper, us = [], [], []
+    with torch.inference_mode():
+        for b in range(batches):
+            mus, lv = model.encode(rows[idx[b]])                   # [R, P, B, d]
+            u = reparameterize(mus, lv, gen)
+            us.append(u)
+            stats = row_stats_plain(*(t.reshape(-1, *t.shape[2:]).contiguous()
+                                      for t in (u, mus, lv)), groups=25)
+            lower, upper = sandwich_from_row_stats(*stats)
+            plain_lower.append(lower.reshape(mus.shape[:2]))
+            plain_upper.append(upper.reshape(mus.shape[:2]))
+        before = density.mi_row_stats_launches
+        k_lower, k_upper = sweep_features_bounds(model, rows, batch, batches, idx=idx,
+                                                 u=torch.stack(us))
+        torch.cuda.synchronize()
+    if density.mi_row_stats_launches - before != batches:
+        fail(f"sweep hook check: {density.mi_row_stats_launches - before} launches, "
+             f"expected {batches}")
+    # The lower bounds are at most log(batch) = 6.93 nats and are held to
+    # BOUNDS_TOL absolute. The upper bounds of the briefly trained flagship
+    # reach ~1e5 nats, where one float32 ulp is ~0.008, so they are held as
+    # the probe call's are: BOUNDS_TOL absolute plus BOUNDS_TOL of their size.
+    p_lower, p_upper = torch.stack(plain_lower).mean(0), torch.stack(plain_upper).mean(0)
+    err = (k_lower - p_lower).abs().max().item()
+    if err > BOUNDS_TOL or not torch.isfinite(torch.cat([k_lower, k_upper])).all():
+        fail(f"sweep hook: kernel path vs plain path lower bounds differ by {err:.3e} nats "
+             f"(tol {BOUNDS_TOL})")
+    upper = compare(f"sweep hook upper bounds, kernel vs plain path (|bound| up to "
+                    f"{p_upper.abs().max().item():.4g} nats)", [k_upper], [p_upper], BOUNDS_TOL)
+    return err, upper["max_abs_err"]
+
+
+def serial_sweep_member(config, bundle, train_config, r, beta_end, use_flash):
+    """Member ``r`` of the sweep trained alone by a serial DIBTrainer from its
+    own seed: (state dict, history)."""
+    from dib_tpu_torch.parallel import member_seed
+    from dib_tpu_torch.train import DIBTrainer
+    from dib_tpu_torch.workloads import build_model
+
+    seed = member_seed(SEED, r)
+    model = build_model(config, device="cuda", use_flash=use_flash,
+                        generator=torch.Generator().manual_seed(seed))
+    trainer = DIBTrainer(model, bundle, dataclasses.replace(train_config, beta_end=beta_end))
+    _, history = trainer.fit(torch.Generator(device="cuda").manual_seed(seed))
+    return model.state_dict(), history
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Each leaf's difference relative to its norm in ``want``."""
+    return {name: ((got[name] - w).norm() / w.norm().clamp_min(1e-30)).item()
+            for name, w in want.items()}
+
+
+def hold_sweep_replicas(result, bundle, config):
+    """Replicas ``SWEEP_HELD`` against a serial DIBTrainer from the same
+    initial weights, endpoint and seed, over the same steps (flash
+    attention, as in the sweep): history rows to SWEEP_TOL relative, each
+    weight leaf to SWEEP_TOL of its norm.
+
+    The biases start at zero and after the warm-up steps hold only a few
+    Adam steps, which Adam normalises: float32 noise in their small,
+    cancelling gradient sums moves them by up to a few percent of their
+    norm whichever way the sums are rounded, most in block 0's query bias,
+    whose saturated attention (phase 6) leaves every float32 recipe ~1e-4
+    off in dq. A witness measures that spread: the same member trained
+    serially with dense attention instead of flash (the same function,
+    other roundings); its readings are printed beside the replica's. Each
+    bias leaf is held to SWEEP_BIAS_TOL of its norm, a limit set from card
+    readings of both (see PERF.md). The attention's key bias, whose
+    gradient is zero in exact arithmetic, moves by Adam-normalised
+    rounding noise only: it must stay within 2 x the summed learning rates
+    of zero in both runs. The accuracy rows are a step function of the
+    logits, and the untrained flagship's logits crowd around 0, where a
+    last-bit difference flips a prediction: they are held to at most
+    SWEEP_FLIPS flipped predictions per epoch (the loss rows beside them
+    stay held to SWEEP_TOL); the witness's flips are printed beside them."""
+    train_config = config.train_config(SWEEP_STEPS_PER_EPOCH)
+    steps = SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH
+    summed_lr = config.learning_rate * sum(min(u / config.warmup_steps, 1.0)
+                                           for u in range(steps))
+    predictions = {"metric": SWEEP_STEPS_PER_EPOCH * train_config.batch_size,
+                   "val_metric": min(len(bundle.x_valid), train_config.max_val_points)}
+    stacked = result["states"].params["model"].state_dict()
+    lines = []
+    for r in SWEEP_HELD:
+        end = float(result["beta_ends"][r])
+        want, history = serial_sweep_member(config, bundle, train_config, r, end, True)
+        witness, witness_history = serial_sweep_member(config, bundle, train_config, r, end,
+                                                       False)
+        record = result["records"][r]
+        rows = {}
+        for name in ("beta", "kl_per_feature", "loss", "val_loss"):
+            got, serial = getattr(record, name), getattr(history, name)
+            rel = np.abs(got - serial) / np.maximum(np.abs(serial), 1e-30)
+            rows[name] = (got, serial, float(np.where(got == serial, 0.0, rel).max()))
+        flips = {name: [np.rint(np.abs(getattr(run, name) - getattr(history, name)) * count)
+                        .astype(int).tolist() for run in (record, witness_history)]
+                 for name, count in predictions.items()}
+        errs = leaf_errors({name: stacked[name][r] for name in want}, want)
+        spread = leaf_errors(witness, want)
+        key_bias = max(max(stacked[name][r].abs().max().item(), want[name].abs().max().item())
+                       for name in want if name.endswith("attention.key.bias"))
+        weights = {n: e for n, e in errs.items() if not n.endswith(".bias")}
+        biases = {n: (e, spread[n]) for n, e in errs.items()
+                  if n.endswith(".bias") and not n.endswith("attention.key.bias")}
+        print(f"sweep replica {r} biases, (replica vs serial, witness vs serial) relative to "
+              f"the leaf's norm: " + json.dumps({name: [float(f"{e:.4g}"), float(f"{w:.4g}")]
+                                                  for name, (e, w) in biases.items()}))
+        lines.append(f"replica {r} vs serial trainer: history max rel err "
+                     f"{max(e for *_, e in rows.values()):.3e}, weights max rel err "
+                     f"{max(weights.values()):.3e} (tol {SWEEP_TOL}; witness "
+                     f"{max(spread[n] for n in weights):.3e}), biases max rel err "
+                     f"{max(e for e, _ in biases.values()):.3e} (tol {SWEEP_BIAS_TOL}; witness "
+                     f"{max(w for _, w in biases.values()):.3e}), key bias {key_bias:.3e} "
+                     f"(limit {2 * summed_lr:.3e}), accuracy predictions flipped per epoch, "
+                     f"replica and witness, {flips} (limit {SWEEP_FLIPS})")
+        for name, (got, serial, _) in rows.items():
+            if not np.allclose(got, serial, rtol=SWEEP_TOL, atol=0.0):
+                fail(f"sweep replica {r}: history {name} {got} vs serial {serial}")
+        for name, (replica_flips, _) in flips.items():
+            if max(replica_flips) > SWEEP_FLIPS:
+                fail(f"sweep replica {r}: accuracy {name}: {replica_flips} predictions flipped "
+                     f"per epoch against the serial run, limit {SWEEP_FLIPS}")
+        for name, err in weights.items():
+            if err > SWEEP_TOL:
+                fail(f"sweep replica {r}: weight {name} differs from the serial run by "
+                     f"{err:.3e} of its norm")
+        for name, (err, witness_err) in biases.items():
+            if err > SWEEP_BIAS_TOL:
+                fail(f"sweep replica {r}: bias {name} differs from the serial run by {err:.3e} "
+                     f"of its norm (the witness by {witness_err:.3e})")
+        if key_bias > 2 * summed_lr:
+            fail(f"sweep replica {r}: attention key bias {key_bias:.3e} beyond 2 x the summed "
+                 f"learning rates {summed_lr:.3e}")
+    return "; ".join(lines)
+
+
+# --------------------------------------------------------------------------
+# phase 10: main path 4, the kernel microbench
 
 def run_microbench():
     from dib_tpu_torch.ops import attention, density
@@ -993,7 +1269,7 @@ def run_microbench():
 
 
 # --------------------------------------------------------------------------
-# phase 10: timings
+# phase 11: timings
 
 def time_flash(card):
     """The flash kernel at the main paths' shapes: event time, the wrapper's
@@ -1135,6 +1411,69 @@ def time_probe_hook(card, driver):
     return probe_ms
 
 
+def time_sweep(card, sweep_run, step, flagship):
+    """The stacked sweep step beside the serial flash step (x 8 is the serial
+    sweep), in turns; one SweepInfoPerFeatureHook call beside one serial
+    InfoPerFeatureHook call (x 8); the sweep step by kernel; the validation
+    pass's time and peak memory."""
+    from dib_tpu_torch.parallel import BetaSweepTrainer, StackedDraws
+    from dib_tpu_torch.train import GeneratorDraws
+
+    config, bundle, result = sweep_run["config"], sweep_run["bundle"], sweep_run["result"]
+    train_config = config.train_config(SWEEP_STEPS_PER_EPOCH)
+    model, states = result["states"].params["model"], result["states"]
+    sweep = BetaSweepTrainer(model, bundle, train_config, config.beta_start, result["beta_ends"])
+    replicas, batch = model.replicas, train_config.batch_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = torch.randint(0, bundle.x_train.shape[0], (replicas, batch), generator=gen,
+                         device="cuda")
+    x = torch.as_tensor(bundle.x_train, device="cuda")[rows]
+    y = torch.as_tensor(bundle.y_train, device="cuda")[rows]
+    eps = torch.randn(model.noise_shape(batch), generator=gen, device="cuda")
+    beta = sweep.betas([0])[0]
+    (serial_trainer, serial_state) = step["flash"]
+    fns = {"sweep": lambda: sweep.train_step(states, x, y, beta, eps),
+           "serial": lambda: serial_trainer.train_step(serial_state, step["x"], step["y"],
+                                                       step["beta"], step["eps"])}
+    step_ms = host_ms(fns)
+    print(f"timing [{card}] sweep training step, {replicas} replicas x batch {batch}, full "
+          f"width, flash: {step_ms['sweep']:.4f} ms; serial flash step {step_ms['serial']:.4f} "
+          f"ms, x {replicas} = {replicas * step_ms['serial']:.4f} ms (host clock, median of 10 "
+          f"in turns); speedup {replicas * step_ms['serial'] / step_ms['sweep']:.2f}x")
+    print(f"profile [{card}] sweep training step: "
+          f"{profile_breakdown(fns['sweep'], top=8, unprofiled_ms=step_ms['sweep'])}")
+
+    hook, trainer, state = flagship["hook"], flagship["trainer"], flagship["state"]
+    sweep_hook = sweep_run["hook"]
+    hook_ms = host_ms({"sweep": lambda: sweep_hook(sweep, states, 0),
+                       "serial": lambda: hook(trainer, state, state.epoch)}, runs=5)
+    print(f"timing [{card}] SweepInfoPerFeatureHook G={replicas * config.number_particles} "
+          f"batch={sweep_hook.evaluation_batch_size}x{sweep_hook.number_evaluation_batches}: "
+          f"{hook_ms['sweep']:.4f} ms; InfoPerFeatureHook G={config.number_particles} "
+          f"{hook_ms['serial']:.4f} ms, x {replicas} = {replicas * hook_ms['serial']:.4f} ms "
+          f"(host clock, median of 5 in turns)")
+
+    generators = [torch.Generator(device="cuda").manual_seed(SEED + 12 + r)
+                  for r in range(replicas)]
+    draws = StackedDraws([GeneratorDraws(g) for g in generators])
+    def validate():
+        return sweep.validate(beta, draws)
+
+    validate()
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    validate_ms = host_ms({"validate": validate}, runs=3, warmup=0)["validate"]
+    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    print(f"timing [{card}] sweep validation pass, {replicas} x "
+          f"{min(len(bundle.x_valid), train_config.max_val_points)} sets in one forward: "
+          f"{validate_ms:.4f} ms (host "
+          f"clock, median of 3); peak device memory above the resident "
+          f"{base_bytes / 1e9:.3f} GB: {peak_gb:.3f} GB; whole sweep run's peak "
+          f"{sweep_run['peak_gb']:.3f} GB")
+    return dict(step_ms=step_ms, hook_ms=hook_ms, validate_ms=validate_ms, peak_gb=peak_gb)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1164,15 +1503,16 @@ def main() -> int:
     flash_err, flash_bf16_err = check_flash()
     density_errs = check_log_density_mat()
 
-    # ---- 4-9. main paths and their checks ------------------------------
+    # ---- 4-10. main paths and their checks -----------------------------
     serving = serve_and_query()
     flagship = train_flagship()
     paths_step = compare_paths(flagship)
     auto_regime()
     driver = drive_amorphous()
+    sweep_run = drive_sweep()
     bench_launches = run_microbench()
 
-    # ---- 10. timings ---------------------------------------------------
+    # ---- 11. timings ---------------------------------------------------
     model, rows, mi_gen = serving["model"], serving["rows"], serving["mi_gen"]
     u, mus, lv = (t.contiguous() for t in serving["stats_in"][-1])
     g, n, d = u.shape
@@ -1231,9 +1571,11 @@ def main() -> int:
           f"{len(driver['result']['mi_epochs'])} MI hook and "
           f"{len(driver['result']['probe_grids'])} probe hook calls: {driver['wall_s']:.3f} s "
           f"(host clock, one run); probe hook {probe_ms:.4f} ms per call")
+    time_sweep(card, sweep_run, paths_step, flagship)
 
-    # ---- 11-12. summary lines ------------------------------------------
-    runs = (serving["launches"], flagship["launches"], driver["launches"], bench_launches)
+    # ---- 12-13. summary lines ------------------------------------------
+    runs = (serving["launches"], flagship["launches"], driver["launches"],
+            sweep_run["launches"], bench_launches)
     total = {name: sum(r.get(name, 0) for r in runs)
              for name in ("mi_row_stats", "flash_attention", "log_density_mat")}
     print(f"main path launches, all paths: {json.dumps(total)}; mi_row_stats probe mode in the "

@@ -18,6 +18,13 @@ a Flax ``PerParticleDIBModel``
 and a Flax ``SetTransformer`` on its own the ``aggregator`` subtree. The
 trees here hold numpy arrays (``jax.device_get`` of a Flax tree, or an Orbax
 restore).
+
+A beta sweep's stacked tree (every leaf [R, ...], as ``jax.vmap`` of
+``init`` gives it) has the same paths, and a model with ``replicas=R`` the
+same names with a leading [R] on each tensor, so both functions map one to
+the other unchanged; ``replica=r`` maps member r alone, from a stacked tree
+to a model without replicas or from a model with replicas to a tree
+without.
 """
 
 from __future__ import annotations
@@ -75,20 +82,23 @@ def _flatten(node, prefix: str = ""):
             yield path, value
 
 
-def params_from_flax(tree) -> dict[str, torch.Tensor]:
-    """Flax model variables -> the port's state dict."""
+def params_from_flax(tree, replica: int | None = None) -> dict[str, torch.Tensor]:
+    """Flax model variables -> the port's state dict (of member ``replica``
+    of a stacked tree, if given)."""
     state = {}
     for path, value in _flatten(tree["params"]):
         name = _translate(path, _FLAX)
         if name is None:
             raise ValueError(f"unexpected Flax parameter {path!r}: the port has only Dense_<k>, "
                              "LayerNorm_<k> and attention projection layers")
-        state[name] = torch.from_numpy(np.array(value, dtype=np.float32))
+        value = np.array(value, dtype=np.float32)
+        state[name] = torch.from_numpy(value if replica is None else value[replica])
     return state
 
 
-def params_to_flax(model_or_state) -> dict:
-    """The port's model (or its state dict) -> Flax variables of numpy arrays."""
+def params_to_flax(model_or_state, replica: int | None = None) -> dict:
+    """The port's model (or its state dict) -> Flax variables of numpy
+    arrays (of member ``replica`` of a model with replicas, if given)."""
     state = (model_or_state.state_dict() if isinstance(model_or_state, nn.Module)
              else model_or_state)
     params: dict = {}
@@ -100,5 +110,5 @@ def params_to_flax(model_or_state) -> dict:
         node = params
         for key in parents:
             node = node.setdefault(key, {})
-        node[leaf] = value.detach().cpu().numpy()
+        node[leaf] = (value if replica is None else value[replica]).detach().cpu().numpy()
     return {"params": params}

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dib_tpu_torch.models.mlp import MLP
+from dib_tpu_torch.models.mlp import MLP, Generators
 from dib_tpu_torch.ops.posenc import (
     positional_encoding,
     positional_encoding_frequencies,
@@ -40,14 +40,15 @@ class GaussianEncoder(nn.Module):
     just another batch axis of the MLP).
 
     ``in_dim`` is the raw feature width; ``logvar_offset`` shifts the
-    predicted log-variances after the split.
+    predicted log-variances after the split. With ``replicas=R``, R
+    independent encoders over a leading replica axis of the input.
     """
 
     def __init__(self, in_dim: int, hidden: Sequence[int] = (128, 128),
                  embedding_dim: int = 32, num_posenc_frequencies: int = 4,
                  posenc_start_power: int = 1,
                  activation: str | Callable | None = "relu", logvar_offset: float = 0.0,
-                 generator: torch.Generator | None = None):
+                 generator: Generators = None, replicas: int | None = None):
         super().__init__()
         self.embedding_dim = embedding_dim
         self.logvar_offset = float(logvar_offset)
@@ -57,7 +58,7 @@ class GaussianEncoder(nn.Module):
                                                              posenc_start_power)),
             persistent=False)
         self.mlp = MLP(posenc_output_dim(in_dim, num_posenc_frequencies), hidden,
-                       2 * embedding_dim, activation, generator=generator)
+                       2 * embedding_dim, activation, generator=generator, stack=replicas)
 
     def forward(self, x: torch.Tensor):
         out = self.mlp(positional_encoding(x, self.frequencies))

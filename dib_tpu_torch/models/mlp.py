@@ -4,12 +4,16 @@ Parameters keep Flax's layout and initialisation so a checkpoint of the JAX
 package loads unchanged: a dense kernel is ``[in, out]`` (``[F, in, out]``
 for a bank of F stacked layers), lecun-normal (a normal truncated at two
 standard deviations, scaled by 1/sqrt(fan_in)), with a zero bias.
+
+A beta sweep's R replicas of a layer are such a stack of R: every parameter
+with a leading [R] axis (the layout of a JAX sweep's stacked tree), mapping
+[R, ..., in] to [R, ..., out] in one batched matmul.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -42,9 +46,22 @@ def resolve_activation(activation) -> Callable:
     return _ACTIVATIONS[activation]
 
 
+# One CPU generator, or one per member of a stack: member r of a module built
+# from a sequence then draws what the module without a stack draws from the
+# r-th.
+Generators = Union[torch.Generator, Sequence[torch.Generator], None]
+
+
 def lecun_normal_(tensor: torch.Tensor, fan_in: int,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
-    """Flax's ``lecun_normal``: truncated normal at +-2 std, variance 1/fan_in."""
+                  generator: Generators = None) -> torch.Tensor:
+    """Flax's ``lecun_normal``: truncated normal at +-2 std, variance 1/fan_in.
+    A sequence of generators fills ``tensor[r]`` from the r-th."""
+    if isinstance(generator, Sequence):
+        if len(generator) != tensor.shape[0]:
+            raise ValueError(f"{len(generator)} generators for {tensor.shape[0]} replicas")
+        for member, member_generator in zip(tensor, generator):
+            lecun_normal_(member, fan_in, member_generator)
+        return tensor
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978   # std of N(0,1) cut at +-2
     with torch.no_grad():
         return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
@@ -53,10 +70,11 @@ def lecun_normal_(tensor: torch.Tensor, fan_in: int,
 
 class Dense(nn.Module):
     """``x @ kernel + bias`` with a Flax-layout kernel; with ``stack=F`` the
-    layer is F independent layers applied as one batched matmul to [F, B, in]."""
+    layer is F independent layers applied as one batched matmul to
+    [F, ..., in]."""
 
     def __init__(self, in_dim: int, out_dim: int, stack: int | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: Generators = None):
         super().__init__()
         lead = () if stack is None else (stack,)
         self.kernel = nn.Parameter(torch.empty(lead + (in_dim, out_dim)))
@@ -64,13 +82,15 @@ class Dense(nn.Module):
         lecun_normal_(self.kernel, in_dim, generator)
 
     def forward(self, x: torch.Tensor, member: int | None = None) -> torch.Tensor:
-        """[B, in] -> [B, out], or [F, B, in] -> [F, B, out] for a stack;
+        """[B, in] -> [B, out], or [F, ..., in] -> [F, ..., out] for a stack;
         ``member`` applies one layer of the stack to [B, in]."""
         kernel, bias = self.kernel, self.bias
         if member is not None:
             kernel, bias = kernel[member], bias[member]
         if kernel.dim() == 3:
-            return torch.baddbmm(bias[:, None, :], x, kernel)
+            flat = torch.baddbmm(bias[:, None, :], x.reshape(x.shape[0], -1, x.shape[-1]),
+                                 kernel)
+            return flat.reshape(*x.shape[:-1], flat.shape[-1])
         return torch.matmul(x, kernel) + bias
 
 
@@ -83,14 +103,16 @@ class MLP(nn.Module):
       output_dim: width of the final (linear unless output_activation) layer.
       activation: hidden-layer activation (name or callable).
       output_activation: optional activation on the output layer.
-      stack: F for a bank of F independent MLPs run as batched matmuls.
-      generator: CPU generator for the initialisation.
+      stack: F for a bank of F independent MLPs run as batched matmuls
+        over a leading axis of the input (a sweep's R replicas).
+      generator: CPU generator for the initialisation (one per member of
+        the stack, or one for all).
     """
 
     def __init__(self, in_dim: int, hidden: Sequence[int], output_dim: int,
                  activation: str | Callable | None = "relu",
                  output_activation: str | Callable | None = None,
-                 stack: int | None = None, generator: torch.Generator | None = None):
+                 stack: int | None = None, generator: Generators = None):
         super().__init__()
         widths = [in_dim, *hidden, output_dim]
         self.layers = nn.ModuleList(

@@ -9,6 +9,11 @@ rearrangement locus. The KL penalty sums over latent dimensions and
 particles (the trainer sums ``kl_per_feature``), mean over the batch.
 "Features" are the particle slots, so the trainer and the MI hook treat
 this model as they treat ``DistributedIBModel``.
+
+With ``replicas=R`` the model is R independent models (the members of a
+beta sweep): every parameter has a leading [R] axis under its usual name,
+every input and output a leading [R] axis, and ``carve`` takes members out
+as a model of their own.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from torch import nn
 
 from dib_tpu_torch.device import resolve_device
 from dib_tpu_torch.models.encoders import GaussianEncoder
+from dib_tpu_torch.models.mlp import Generators
 from dib_tpu_torch.models.set_transformer import SetTransformer
 from dib_tpu_torch.ops.gaussian import kl_diagonal_gaussian, reparameterize
 
@@ -31,7 +37,9 @@ class PerParticleDIBModel(nn.Module):
     (128, 128) -> 2 x 32 with logvar offset -3, no positional encoding, set
     transformer of 6 blocks x 12 heads x key_dim 128 (1,293,505 parameters).
     Parameters are initialised on the CPU from ``generator`` (Flax's
-    schemes) and moved to ``device`` (``None`` means the GPU).
+    schemes) and moved to ``device`` (``None`` means the GPU). With
+    ``replicas=R`` and a sequence of R generators, replica r holds the
+    weights the model without replicas draws from the r-th generator.
     """
 
     def __init__(self, num_particles: int = 50, particle_feature_dim: int = 12,
@@ -42,31 +50,40 @@ class PerParticleDIBModel(nn.Module):
                  output_dim: int = 1, activation: str | Callable | None = "relu",
                  use_flash: bool | None = None, flash_min_seq: int = 1024,
                  fuse_qkv: bool = False, remat: bool = False, *, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: Generators = None, replicas: int | None = None):
+        # the architecture's arguments, from which ``carve`` builds a model
+        architecture = {name: value for name, value in locals().items()
+                        if name not in ("self", "device", "generator", "replicas", "__class__")}
         super().__init__()
         device = resolve_device(device)
+        self.architecture = architecture
+        self.replicas = replicas
         self.num_particles = num_particles
         self.particle_feature_dim = particle_feature_dim
         self.embedding_dim = embedding_dim
         self.particle_encoder = GaussianEncoder(
             particle_feature_dim, encoder_hidden, embedding_dim, num_posenc_frequencies,
-            activation=activation, logvar_offset=logvar_offset, generator=generator)
+            activation=activation, logvar_offset=logvar_offset, generator=generator,
+            replicas=replicas)
         self.aggregator = SetTransformer(
             num_blocks, num_heads, key_dim, embedding_dim, ff_hidden, head_hidden, output_dim,
             use_flash=use_flash, flash_min_seq=flash_min_seq, fuse_qkv=fuse_qkv, remat=remat,
-            device=device, generator=generator)
+            device=device, generator=generator, replicas=replicas)
         self.to(device)
 
     @property
     def num_features(self) -> int:
         return self.num_particles
 
-    def noise_shape(self, batch: int) -> tuple[int, int, int]:
-        """Shape of the standard-normal noise one forward draws: [B, P, d]."""
-        return (batch, self.num_particles, self.embedding_dim)
+    def noise_shape(self, batch: int) -> tuple[int, ...]:
+        """Shape of the standard-normal noise one forward draws: [B, P, d]
+        ([R, B, P, d] with replicas)."""
+        lead = () if self.replicas is None else (self.replicas,)
+        return lead + (batch, self.num_particles, self.embedding_dim)
 
     def _sets(self, x: torch.Tensor) -> torch.Tensor:
-        return x.reshape(x.shape[0], self.num_particles, self.particle_feature_dim)
+        lead = x.shape[:1 if self.replicas is None else 2]
+        return x.reshape(*lead, self.num_particles, self.particle_feature_dim)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None,
                 eps: torch.Tensor | None = None, sample: bool = True):
@@ -74,23 +91,38 @@ class PerParticleDIBModel(nn.Module):
         (KL summed over latent dims, mean over the batch), ``mus``/``logvars``
         [P, B, d] and ``embeddings`` [B, P*d]. ``sample=False`` feeds the
         posterior means; otherwise u is drawn from ``generator``, or built
-        from the injected noise ``eps`` ([B, P, d])."""
-        batch = x.shape[0]
+        from the injected noise ``eps`` ([B, P, d]). With replicas, x is
+        [R, B, P*F] and every output gains a leading [R]."""
         mus, logvars = self.particle_encoder(self._sets(x))      # [B, P, d] each
         u = reparameterize(mus, logvars, generator, eps) if sample else mus
-        kl_per_feature = kl_diagonal_gaussian(mus, logvars).mean(dim=0)
+        kl_per_feature = kl_diagonal_gaussian(mus, logvars).mean(dim=-2)
         prediction = self.aggregator(u)
-        aux = {"kl_per_feature": kl_per_feature, "mus": mus.movedim(1, 0),
-               "logvars": logvars.movedim(1, 0), "embeddings": u.reshape(batch, -1)}
+        aux = {"kl_per_feature": kl_per_feature, "mus": mus.transpose(-3, -2),
+               "logvars": logvars.transpose(-3, -2), "embeddings": u.flatten(-2)}
         return prediction, aux
 
     def encode(self, x: torch.Tensor):
-        """Channel parameters of every particle slot: [P, B, d] each."""
+        """Channel parameters of every particle slot: [P, B, d] each
+        ([R, P, B, d] with replicas)."""
         mus, logvars = self.particle_encoder(self._sets(x))
-        return mus.movedim(1, 0), logvars.movedim(1, 0)
+        return mus.transpose(-3, -2), logvars.transpose(-3, -2)
 
     def encode_feature(self, feature_index: int, x_feature: torch.Tensor):
         """Channel parameters from raw per-particle data [B, F]; every slot
         shares the encoder, so ``feature_index`` only names the slot."""
         del feature_index
         return self.particle_encoder(x_feature)
+
+    def carve(self, members: int | Sequence[int]) -> "PerParticleDIBModel":
+        """A copy of some members of a model with replicas, on its device:
+        for an int r, a model without replicas holding replica r's weights;
+        for a sequence, a model whose replicas are those members in order."""
+        if self.replicas is None:
+            raise ValueError("carve takes members out of a model with replicas")
+        single = isinstance(members, int)
+        index = members if single else list(members)
+        model = PerParticleDIBModel(**self.architecture, device=next(self.parameters()).device,
+                                    generator=torch.Generator(),   # overwritten below
+                                    replicas=None if single else len(index))
+        model.load_state_dict({name: value[index] for name, value in self.state_dict().items()})
+        return model

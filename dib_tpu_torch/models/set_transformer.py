@@ -17,18 +17,25 @@ The attention core is the flash kernel (``ops.attention``) when
 ``flash_min_seq`` elements on a CUDA tensor; the dense version otherwise.
 Sets sharded over several devices (the JAX package's ``seq_axis``) are not
 ported.
+
+With ``replicas=R`` every module holds R independent copies of its
+parameters (a leading [R] axis on each, names unchanged) and takes inputs
+[R, B, S, model_dim]. Attention has no weights, so R is folded into its
+batch axis: one dense call or one flash launch serves every replica.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dib_tpu_torch.device import resolve_device
-from dib_tpu_torch.models.mlp import MLP, lecun_normal_
+from dib_tpu_torch.models.mlp import MLP, Generators, lecun_normal_
 from dib_tpu_torch.ops.attention import dense_self_attention, flash_self_attention
 
 LAYER_NORM_EPS = 1e-6     # Flax's LayerNorm default
@@ -37,23 +44,53 @@ LAYER_NORM_EPS = 1e-6     # Flax's LayerNorm default
 class DenseGeneral(nn.Module):
     """Flax's ``DenseGeneral``: ``x @ kernel + bias`` over a kernel of shape
     ``[*in_shape, *out_shape]``, contracting the last ``len(in_shape)`` axes
-    of x. Lecun-normal with fan-in = prod(in_shape), zero bias."""
+    of x. Lecun-normal with fan-in = prod(in_shape), zero bias. With
+    ``replicas=R``, R independent layers over x's leading axis."""
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
-                 generator: torch.Generator | None = None):
+                 generator: Generators = None, replicas: int | None = None):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.replicas = replicas
         fan_in = 1
         for n in self.in_shape:
             fan_in *= n
-        self.kernel = nn.Parameter(torch.empty(self.in_shape + self.out_shape))
-        self.bias = nn.Parameter(torch.zeros(self.out_shape))
+        lead = () if replicas is None else (replicas,)
+        self.kernel = nn.Parameter(torch.empty(lead + self.in_shape + self.out_shape))
+        self.bias = nn.Parameter(torch.zeros(lead + self.out_shape))
         lecun_normal_(self.kernel, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:x.dim() - len(self.in_shape)]
+        if self.replicas is not None:
+            r = self.replicas
+            flat = x.reshape(r, -1, math.prod(self.in_shape)) @ \
+                self.kernel.reshape(r, -1, math.prod(self.out_shape))
+            return (flat + self.bias.reshape(r, 1, -1)).reshape(*lead, *self.out_shape)
         flat = x.reshape(*lead, -1) @ self.kernel.reshape(-1, self.bias.numel())
         return (flat + self.bias.reshape(-1)).reshape(*lead, *self.out_shape)
+
+
+class ReplicaLayerNorm(nn.Module):
+    """LayerNorm (eps 1e-6) with its own ``weight`` and ``bias`` [R, dim]
+    per replica, over inputs [R, ..., dim]."""
+
+    def __init__(self, replicas: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(replicas, dim))
+        self.bias = nn.Parameter(torch.zeros(replicas, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        normed = F.layer_norm(x, x.shape[-1:], eps=LAYER_NORM_EPS)
+        return normed * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+
+def layer_norm(dim: int, replicas: int | None = None) -> nn.Module:
+    """Flax's LayerNorm over the last axis, one per replica with ``replicas``."""
+    if replicas is None:
+        return nn.LayerNorm(dim, eps=LAYER_NORM_EPS)
+    return ReplicaLayerNorm(replicas, dim)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -61,19 +98,21 @@ class MultiHeadSelfAttention(nn.Module):
 
     def __init__(self, in_dim: int, num_heads: int, qkv_features: int, out_features: int,
                  use_flash: bool | None = None, flash_min_seq: int = 1024,
-                 fuse_qkv: bool = False, generator: torch.Generator | None = None):
+                 fuse_qkv: bool = False, generator: Generators = None,
+                 replicas: int | None = None):
         super().__init__()
         head_dim = qkv_features // num_heads
         self.use_flash = use_flash
         self.flash_min_seq = flash_min_seq
         self.fuse_qkv = fuse_qkv
+        self.replicas = replicas
         if fuse_qkv:
-            self.qkv = DenseGeneral((in_dim,), (3, num_heads, head_dim), generator)
+            self.qkv = DenseGeneral((in_dim,), (3, num_heads, head_dim), generator, replicas)
         else:
-            self.query = DenseGeneral((in_dim,), (num_heads, head_dim), generator)
-            self.key = DenseGeneral((in_dim,), (num_heads, head_dim), generator)
-            self.value = DenseGeneral((in_dim,), (num_heads, head_dim), generator)
-        self.out = DenseGeneral((num_heads, head_dim), (out_features,), generator)
+            self.query = DenseGeneral((in_dim,), (num_heads, head_dim), generator, replicas)
+            self.key = DenseGeneral((in_dim,), (num_heads, head_dim), generator, replicas)
+            self.value = DenseGeneral((in_dim,), (num_heads, head_dim), generator, replicas)
+        self.out = DenseGeneral((num_heads, head_dim), (out_features,), generator, replicas)
 
     def flash(self, x: torch.Tensor) -> bool:
         """The dispatch rule: the flag if set, else large sets on the GPU."""
@@ -82,14 +121,18 @@ class MultiHeadSelfAttention(nn.Module):
         return x.shape[-2] >= self.flash_min_seq and x.is_cuda
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, S, in] -> [B, S, out_features]."""
+        """[B, S, in] -> [B, S, out_features], or [R, B, S, in] -> [R, B, S,
+        out_features] with replicas (the core sees [R * B, S, H, D] views)."""
         if self.fuse_qkv:
             qkv = self.qkv(x)                                    # [B, S, 3, H, D]
             q, k, v = qkv[..., 0, :, :], qkv[..., 1, :, :], qkv[..., 2, :, :]
         else:
             q, k, v = self.query(x), self.key(x), self.value(x)  # [B, S, H, D]
         attend = flash_self_attention if self.flash(x) else dense_self_attention
-        return self.out(attend(q, k, v).to(q.dtype))
+        if self.replicas is None:
+            return self.out(attend(q, k, v).to(q.dtype))
+        out = attend(q.flatten(0, 1), k.flatten(0, 1), v.flatten(0, 1))
+        return self.out(out.to(q.dtype).unflatten(0, q.shape[:2]))
 
 
 class SetAttentionBlock(nn.Module):
@@ -98,15 +141,16 @@ class SetAttentionBlock(nn.Module):
     def __init__(self, num_heads: int = 12, key_dim: int = 128, ff_hidden: Sequence[int] = (128,),
                  model_dim: int = 32, ff_activation: str | Callable | None = "relu",
                  use_flash: bool | None = None, flash_min_seq: int = 1024,
-                 fuse_qkv: bool = False, generator: torch.Generator | None = None):
+                 fuse_qkv: bool = False, generator: Generators = None,
+                 replicas: int | None = None):
         super().__init__()
         self.attention = MultiHeadSelfAttention(
             model_dim, num_heads, num_heads * key_dim, model_dim, use_flash, flash_min_seq,
-            fuse_qkv, generator)
-        self.norm0 = nn.LayerNorm(model_dim, eps=LAYER_NORM_EPS)
+            fuse_qkv, generator, replicas)
+        self.norm0 = layer_norm(model_dim, replicas)
         self.ff = MLP(model_dim, ff_hidden, model_dim, ff_activation,
-                      output_activation=ff_activation, generator=generator)
-        self.norm1 = nn.LayerNorm(model_dim, eps=LAYER_NORM_EPS)
+                      output_activation=ff_activation, generator=generator, stack=replicas)
+        self.norm1 = layer_norm(model_dim, replicas)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.norm0(x + self.attention(x))
@@ -116,11 +160,12 @@ class SetAttentionBlock(nn.Module):
 class SetTransformer(nn.Module):
     """Set-attention blocks -> mean pool -> head MLP -> linear output.
 
-    Input [B, S, model_dim], output [B, output_dim]. ``remat`` recomputes
+    Input [B, S, model_dim], output [B, output_dim]; with ``replicas=R``,
+    [R, B, S, model_dim] -> [R, B, output_dim]. ``remat`` recomputes
     each block on the backward pass (``torch.utils.checkpoint``), so a
     block's activations are not kept between the passes. Parameters are
-    initialised on the CPU from ``generator`` and moved to ``device``
-    (``None`` means the GPU).
+    initialised on the CPU from ``generator`` (or one generator per
+    replica) and moved to ``device`` (``None`` means the GPU).
     """
 
     def __init__(self, num_blocks: int = 6, num_heads: int = 12, key_dim: int = 128,
@@ -130,16 +175,16 @@ class SetTransformer(nn.Module):
                  head_activation: str | Callable | None = "leaky_relu",
                  use_flash: bool | None = None, flash_min_seq: int = 1024,
                  fuse_qkv: bool = False, remat: bool = False, *, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: Generators = None, replicas: int | None = None):
         super().__init__()
         device = resolve_device(device)
         self.remat = remat
         self.blocks = nn.ModuleList(
             SetAttentionBlock(num_heads, key_dim, ff_hidden, model_dim, ff_activation,
-                              use_flash, flash_min_seq, fuse_qkv, generator)
+                              use_flash, flash_min_seq, fuse_qkv, generator, replicas)
             for _ in range(num_blocks))
         self.head = MLP(model_dim, head_hidden, output_dim, head_activation,
-                        generator=generator)
+                        generator=generator, stack=replicas)
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -57,6 +57,7 @@ from dib_tpu_torch.ops.gaussian import gaussian_log_density_mat
 
 NEG_INF = -1e30   # large-finite mask value: inf - inf would give NaN
 MAX_DIM = 64      # widest channel the kernel's staging pass holds
+MAX_GROUPS = 65535   # most groups one launch takes (a grid axis of its kernels)
 # Waves of blocks below which the kernel's columns are split (on an H100 a
 # target of 8 waves ran faster than one of 2 at G = 10 and 50; PERF.md).
 WAVES = 8
@@ -193,8 +194,8 @@ def _launch(u, mus, logvars, diagonal: bool):
         raise ValueError("the kernel takes contiguous inputs")
     if d > MAX_DIM:
         raise ValueError(f"the kernel supports d <= {MAX_DIM}, got d = {d}")
-    if not 1 <= g <= 65535 or n == 0 or m == 0:
-        raise ValueError(f"the kernel needs 1 <= G <= 65535 and non-empty rows, got "
+    if not 1 <= g <= MAX_GROUPS or n == 0 or m == 0:
+        raise ValueError(f"the kernel needs 1 <= G <= {MAX_GROUPS} and non-empty rows, got "
                          f"G={g}, N={n}, M={m}")
     kernel = _kernel_entry()
     splits = kernel_column_splits(g, n, m, u.device.index)

@@ -2,7 +2,8 @@
 
 A preallocated dict of float32 tensors on the trainer's device, one row per
 recorded epoch, written at a host-side integer cursor, so recording a row
-needs no device sync; it is fetched once, as a :class:`HistoryRecord`.
+needs no device sync; it is fetched once, as a :class:`HistoryRecord`. A
+sweep's history puts a replica axis first ([R, T, ...]) under one cursor.
 Everything is recorded in nats and converted to bits by
 :meth:`HistoryRecord.to_bits` at the reporting boundary.
 """
@@ -17,12 +18,19 @@ import torch
 FIELDS = ("beta", "kl_per_feature", "loss", "val_loss", "metric", "val_metric")
 
 
-def history_init(num_records: int, num_features: int, device=None) -> dict:
-    """Preallocated history: one row per recorded epoch."""
-    history = {name: torch.zeros(num_records, device=device) for name in FIELDS}
-    history["kl_per_feature"] = torch.zeros(num_records, num_features, device=device)
+def history_init(num_records: int, num_features: int, device=None,
+                 replicas: int | None = None) -> dict:
+    """Preallocated history: one row per recorded epoch (of each replica)."""
+    lead = () if replicas is None else (replicas,)
+    history = {name: torch.zeros(lead + (num_records,), device=device) for name in FIELDS}
+    history["kl_per_feature"] = torch.zeros(lead + (num_records, num_features), device=device)
     history["cursor"] = 0
     return history
+
+
+def _time_axis(history: dict) -> int:
+    """0 for a serial history, 1 for a sweep's [R, T, ...]."""
+    return history["beta"].dim() - 1
 
 
 def history_extend(history: dict, extra_records: int) -> dict:
@@ -31,19 +39,22 @@ def history_extend(history: dict, extra_records: int) -> dict:
     if extra_records < 0:
         raise ValueError(f"extra_records must be >= 0, got {extra_records}")
     out = {"cursor": history["cursor"]}
+    axis = _time_axis(history)
     for name in FIELDS:
         buf = history[name]
-        pad = buf.new_zeros((extra_records, *buf.shape[1:]))
-        out[name] = torch.cat([buf, pad])
+        pad = buf.new_zeros((*buf.shape[:axis], extra_records, *buf.shape[axis + 1:]))
+        out[name] = torch.cat([buf, pad], dim=axis)
     return out
 
 
 def history_record(history: dict, row: dict) -> dict:
-    """Write one row at the cursor (in place) and advance the cursor."""
+    """Write one row at the cursor (in place) and advance the cursor; a
+    sweep's row holds every replica's value on a leading axis."""
     cursor = history["cursor"]
+    at = (slice(None),) * _time_axis(history) + (cursor,)
     with torch.no_grad():
         for name, value in row.items():
-            history[name][cursor] = value
+            history[name][at] = value
     history["cursor"] = cursor + 1
     return history
 

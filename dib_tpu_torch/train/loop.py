@@ -12,6 +12,11 @@ object, by default :class:`GeneratorDraws` over one ``torch.Generator`` on
 the trainer's device. A test replays the JAX key schedule by passing its
 own object with the same three methods.
 
+The loss core also trains a model with replicas (the beta sweep,
+``dib_tpu_torch.parallel.sweep``): then every batch, noise, beta, loss and
+history row has a leading replica axis, the task loss and metric are
+reduced per replica, and one backward pass takes the sum over replicas.
+
 Left out of ``fit`` for now: telemetry, fault plans, preemption, the
 divergence guard and its checkpoint rollback.
 """
@@ -133,9 +138,12 @@ class DIBTrainer:
         self.bundle = bundle
         self.config = config
         self.y_encoder = None if y_encoder is None else y_encoder.to(self.device)
+        self.replicas = getattr(model, "replicas", None)
         self.contrastive = bundle.loss == "infonce"
         if self.contrastive and y_encoder is None:
             raise ValueError("infonce loss requires a y_encoder model")
+        if self.contrastive and self.replicas is not None:
+            raise ValueError("contrastive training of a model with replicas is not ported")
         if config.batch_sampling not in ("replacement", "permutation"):
             raise ValueError(f"Unknown batch_sampling {config.batch_sampling!r} "
                              "(expected 'replacement' or 'permutation')")
@@ -172,10 +180,16 @@ class DIBTrainer:
         if self.y_encoder is not None:
             params["y_encoder"] = self.y_encoder
         optimizer, schedule = make_optimizer(self.config, params.parameters())
-        history = history_init(self.config.num_epochs, self.num_features, self.device)
+        history = history_init(self.config.num_epochs, self.num_features, self.device,
+                               self.replicas)
         return TrainState(params, optimizer, schedule, 0), history
 
     # -------------------------------------------------------------- loss core
+    def _per_replica(self, fn):
+        """``fn`` reduces over every axis it is given; with replicas it is
+        mapped over the replica axis, so each replica is reduced alone."""
+        return fn if self.replicas is None else torch.func.vmap(fn)
+
     def _forward_loss(self, x, y, beta, eps):
         prediction, aux = self.model(x, eps=eps)
         kl_per_feature = aux["kl_per_feature"]
@@ -184,29 +198,40 @@ class DIBTrainer:
                                      self.config.infonce_similarity,
                                      self.config.infonce_temperature)
         else:
-            task = self._task_loss(prediction, y)
-        loss = task + beta * kl_per_feature.sum()
-        metric = (self._metric(prediction, y) if self._metric is not None
-                  else torch.zeros((), device=self.device))
+            task = self._per_replica(self._task_loss)(prediction, y)
+        loss = task + beta * kl_per_feature.sum(-1)
+        metric = (self._per_replica(self._metric)(prediction, y) if self._metric is not None
+                  else torch.zeros(kl_per_feature.shape[:-1], device=self.device))
         return loss, {"task": task, "kl": kl_per_feature, "metric": metric}
 
     def train_step(self, state: TrainState, x, y, beta, eps) -> dict:
         """One update on batch (x, y) with the encoders' noise ``eps``;
-        returns the step's detached statistics."""
+        returns the step's detached statistics. With replicas, x, y, eps and
+        beta ([R]) lead with the replica axis, and the gradient is that of
+        the sum of the replicas' losses: replica r's weights get only its own."""
         state.optimizer.zero_grad(set_to_none=True)
         loss, stats = self._forward_loss(x, y, beta, eps)
-        loss.backward()
+        (loss if self.replicas is None else loss.sum()).backward()
         state.optimizer.step()
         state.schedule.step()
         return {name: value.detach() for name, value in stats.items()}
 
     # ------------------------------------------------------------------ epoch
-    def _epoch_body(self, state: TrainState, draws) -> dict:
+    def _betas(self, start: int, num_epochs: int):
+        """The beta of each of ``num_epochs`` epochs from epoch ``start``,
+        from the config's schedule. Each is a float32 value as a Python
+        float: the loss multiplies it in float32 and no host-to-device copy
+        waits on the stream. A sweep gives one [R] row per epoch instead."""
         cfg = self.config
-        # a float32 value as a Python float: the loss multiplies it in float32
-        # and no host-to-device copy waits on the stream
-        beta = float(log_annealed_beta(state.epoch, cfg.beta_start, cfg.beta_end,
-                                       cfg.num_annealing_epochs, cfg.num_pretraining_epochs))
+        return [float(log_annealed_beta(epoch, cfg.beta_start, cfg.beta_end,
+                                        cfg.num_annealing_epochs, cfg.num_pretraining_epochs))
+                for epoch in range(start, start + num_epochs)]
+
+    def _epoch_body(self, state: TrainState, draws, beta) -> dict:
+        """One epoch at ``beta`` (one of ``_betas``). With replicas,
+        ``draws`` gives indices [steps, R, B] and noise of the model's
+        ``noise_shape``."""
+        cfg = self.config
         idx = draws.start_epoch(self._x_train.shape[0], self.steps_per_epoch,
                                 cfg.batch_size, cfg.batch_sampling).to(self.device)
         steps = []
@@ -216,31 +241,51 @@ class DIBTrainer:
             steps.append(self.train_step(state, self._x_train[rows], self._y_train[rows],
                                          beta, eps))
         state.epoch += 1
+        val_loss, val_metric = self.validate(beta, draws)
+        return {
+            "beta": beta,
+            "kl_per_feature": torch.stack([s["kl"] for s in steps]).mean(0),
+            "loss": torch.stack([s["task"] for s in steps]).mean(0),
+            "val_loss": val_loss,
+            "metric": torch.stack([s["metric"] for s in steps]).mean(0),
+            "val_metric": val_metric,
+        }
 
+    def validate(self, beta, draws):
+        """The task loss and metric on the validation rows, in one forward
+        (training-sized chunks for InfoNCE); with replicas every replica
+        sees every row, [R] each."""
         num_chunks = self._x_valid.shape[0] // self._val_chunk
         val_task, val_metric = [], []
         with torch.no_grad():
             for chunk in range(num_chunks):
                 rows = slice(chunk * self._val_chunk, (chunk + 1) * self._val_chunk)
+                x, y = self._x_valid[rows], self._y_valid[rows]
+                if self.replicas is not None:
+                    x, y = (t.expand(self.replicas, *t.shape) for t in (x, y))
                 eps = draws.val_noise(chunk, num_chunks, self.model.noise_shape(self._val_chunk))
-                _, aux = self._forward_loss(self._x_valid[rows], self._y_valid[rows],
-                                            beta, eps)
+                _, aux = self._forward_loss(x, y, beta, eps)
                 val_task.append(aux["task"])
                 val_metric.append(aux["metric"])
-        return {
-            "beta": beta,
-            "kl_per_feature": torch.stack([s["kl"] for s in steps]).mean(0),
-            "loss": torch.stack([s["task"] for s in steps]).mean(),
-            "val_loss": torch.stack(val_task).mean(),
-            "metric": torch.stack([s["metric"] for s in steps]).mean(),
-            "val_metric": torch.stack(val_metric).mean(),
-        }
+        return torch.stack(val_task).mean(0), torch.stack(val_metric).mean(0)
 
     def run_chunk(self, state: TrainState, history: dict, draws, num_epochs: int):
         """Train ``num_epochs`` epochs, recording one history row each."""
-        for _ in range(num_epochs):
-            history = history_record(history, self._epoch_body(state, draws))
+        for beta in self._betas(state.epoch, num_epochs):
+            history = history_record(history, self._epoch_body(state, draws, beta))
         return state, history
+
+    def _make_draws(self, generator, draws):
+        """The draws object ``fit`` trains from."""
+        return GeneratorDraws(generator) if draws is None else draws
+
+    def _after_chunk(self, state: TrainState, history: dict):
+        """Runs after every chunk, before the hooks; a sweep checks its
+        members here."""
+
+    def _records(self, history: dict):
+        """What ``fit`` returns of the history."""
+        return HistoryRecord.from_device(history)
 
     # -------------------------------------------------------------------- fit
     def fit(self, generator: torch.Generator | None = None, num_epochs: int | None = None,
@@ -256,13 +301,13 @@ class DIBTrainer:
         """
         if (generator is None) == (draws is None):
             raise ValueError("give exactly one of generator and draws")
-        draws = GeneratorDraws(generator) if draws is None else draws
+        draws = self._make_draws(generator, draws)
         num_epochs = self.config.num_epochs if num_epochs is None else num_epochs
         if (state is None) != (history is None):
             raise ValueError("Resuming needs BOTH state and history; got exactly one")
         if state is None:
             state, history = self.init()
-        capacity, cursor = history["beta"].shape[0], history["cursor"]
+        capacity, cursor = history["beta"].shape[-1], history["cursor"]
         if cursor + num_epochs > capacity:
             raise ValueError(
                 f"History buffer holds {capacity} epochs but {cursor} are already recorded "
@@ -274,6 +319,7 @@ class DIBTrainer:
             this_chunk = min(chunk, num_epochs - done)
             state, history = self.run_chunk(state, history, draws, this_chunk)
             done += this_chunk
+            self._after_chunk(state, history)
             for hook in hooks:
                 hook(self, state, state.epoch)
-        return state, HistoryRecord.from_device(history)
+        return state, self._records(history)

@@ -1,4 +1,4 @@
-"""Paper workloads of the port: the amorphous-plasticity flagship so far."""
+"""Paper workloads of the port: the amorphous-plasticity flagship and its beta sweep."""
 
 from dib_tpu_torch.workloads.amorphous import (
     AmorphousWorkloadConfig,
@@ -10,5 +10,6 @@ from dib_tpu_torch.workloads.amorphous import (
     probe_grid_positions,
     probe_info_maps,
     run_amorphous_protocols,
+    run_amorphous_sweep,
     run_amorphous_workload,
 )

@@ -16,16 +16,19 @@ linear LR warmup, and:
     pair-correlation density g(r) vanishes;
   - the distributed info plane: task loss against transmitted information.
 
-:func:`run_amorphous_workload` is the single-schedule driver and
-:func:`run_amorphous_protocols` its loop over quench protocols. Not ported
-yet: the beta sweep ``run_amorphous_sweep``, the probe grid sharded over a
-device mesh (``probe_mesh``) and checkpointing.
+:func:`run_amorphous_workload` is the single-schedule driver,
+:func:`run_amorphous_protocols` its loop over quench protocols and
+:func:`run_amorphous_sweep` the north-star run, the whole configuration
+swept over a grid of beta endpoints as one stacked program. Not ported
+yet: the probe grid sharded over a device mesh (``probe_mesh``), the
+sweep's mesh and checkpointing.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import time
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
@@ -34,10 +37,13 @@ import torch
 
 from dib_tpu_torch.data.amorphous import per_particle_features
 from dib_tpu_torch.data.registry import get_dataset
+from dib_tpu_torch.device import resolve_device
+from dib_tpu_torch.models.mlp import Generators
 from dib_tpu_torch.models.per_particle import PerParticleDIBModel
 from dib_tpu_torch.ops.entropy import sequence_entropy_bits
 from dib_tpu_torch.ops.gaussian import reparameterize
 from dib_tpu_torch.ops.info_bounds import mi_sandwich_probe
+from dib_tpu_torch.parallel.sweep import BetaSweepTrainer, member_seed
 from dib_tpu_torch.train.hooks import Every, InfoPerFeatureHook
 from dib_tpu_torch.train.loop import DIBTrainer, TrainConfig
 from dib_tpu_torch.viz.info_plane import save_distributed_info_plane
@@ -80,9 +86,9 @@ class AmorphousWorkloadConfig:
 
 
 def build_model(config: AmorphousWorkloadConfig, *, device=None,
-                generator: torch.Generator | None = None, **overrides) -> PerParticleDIBModel:
-    """The full architecture; ``overrides`` (e.g. ``use_flash``) set model
-    fields, or shrink it for tests."""
+                generator: Generators = None, **overrides) -> PerParticleDIBModel:
+    """The full architecture; ``overrides`` (e.g. ``use_flash``, or
+    ``replicas`` for a sweep) set model fields, or shrink it for tests."""
     return PerParticleDIBModel(num_particles=config.number_particles, device=device,
                                generator=generator, **overrides)
 
@@ -288,6 +294,72 @@ def run_amorphous_workload(seed: int = 0, config: AmorphousWorkloadConfig | None
         "mi_epochs": info_hook.epochs,
         "probe_grids": probe_hook.grids_by_step if probe_hook else {},
         "info_plane_path": plane_path,
+    }
+
+
+def run_amorphous_sweep(seed: int = 0, config: AmorphousWorkloadConfig | None = None,
+                        beta_ends: Sequence[float] | None = None, num_repeats: int = 1,
+                        outdir: str = "./amorphous_sweep_out", steps_per_epoch: int = 50,
+                        model_overrides: dict | None = None, hooks: Sequence[Callable] = (),
+                        chunk_epochs: int = 25, *, device=None, render: bool = True,
+                        data_seed: int = 0, **fetch_kwargs) -> dict:
+    """The north-star run: the full set-transformer configuration swept over
+    a grid of beta endpoints (x seed repeats) as one stacked program on one
+    device (``None`` means the GPU).
+
+    ``beta_ends`` defaults to ``np.logspace(-2, 0, 8)``; each endpoint is
+    repeated ``num_repeats`` times, and every member r has its own seed
+    ``member_seed(seed, r)`` for its initial weights and its draws, so it
+    replays a serial run of the same seed. ``hooks`` are sweep hooks
+    (``SweepInfoPerFeatureHook``), called every ``chunk_epochs`` epochs.
+    ``render=False`` plots nothing and writes nothing (for a machine without
+    matplotlib). ``data_seed`` and ``fetch_kwargs`` go to the
+    ``amorphous_particles`` dataset.
+
+    Returns the JAX driver's keys that apply: ``states`` (stacked),
+    ``records`` (one ``HistoryRecord`` per member, nats), ``beta_ends`` [R],
+    ``wall_clock_s`` (``fit`` on the host clock, after a device
+    synchronise), ``entropy_y_bits`` and ``info_plane_paths`` (empty when
+    ``render`` is off). The JAX driver's ``mesh``, ``use_mesh`` and
+    ``checkpoint_dir`` are not ported.
+    """
+    device = resolve_device(device)
+    config = config or AmorphousWorkloadConfig()
+    ends = np.repeat(np.asarray(np.logspace(-2, 0, 8) if beta_ends is None else beta_ends,
+                                np.float64), num_repeats)
+    seeds = [member_seed(seed, r) for r in range(len(ends))]
+    bundle = get_dataset("amorphous_particles", number_particles_to_use=config.number_particles,
+                         seed=data_seed, **fetch_kwargs)
+    model = build_model(config, device=device, replicas=len(ends),
+                        generator=[torch.Generator().manual_seed(s) for s in seeds],
+                        **(model_overrides or {}))
+    sweep = BetaSweepTrainer(model, bundle, config.train_config(steps_per_epoch),
+                             config.beta_start, ends, device=device)
+    generators = [torch.Generator(device=device).manual_seed(s) for s in seeds]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    states, records = sweep.fit(generators, hooks=hooks, hook_every=chunk_epochs)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    wall_s = time.perf_counter() - t0
+
+    entropy_y = sequence_entropy_bits(bundle.y_train.reshape(-1))
+    paths = []
+    if render:
+        for r, record in enumerate(records):
+            bits = record.to_bits()
+            paths.append(save_distributed_info_plane(
+                bits.kl_per_feature, bits.loss, outdir, entropy_y=entropy_y,
+                info_plot_lims=(0.0, float(bits.total_kl.max()) + 1.0),
+                filename=f"info_plane_replica{r}_betaend{ends[r]:.2e}.png"))
+    return {
+        "states": states,
+        "records": records,
+        "beta_ends": ends,
+        "wall_clock_s": wall_s,
+        "entropy_y_bits": entropy_y,
+        "info_plane_paths": paths,
     }
 
 

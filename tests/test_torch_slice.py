@@ -21,9 +21,12 @@ from dib_tpu.ops.gaussian import reparameterize as jax_reparameterize
 from dib_tpu.train.hooks import all_features_bounds_kernel
 from dib_tpu_torch import interop
 from dib_tpu_torch.device import resolve_device
-from dib_tpu_torch.models import DistributedIBModel
+from dib_tpu_torch.models import DistributedIBModel, PerParticleDIBModel
+from dib_tpu_torch.parallel import BetaSweepTrainer
 from dib_tpu_torch.serve import InferenceEngine
+from dib_tpu_torch.train import TrainConfig
 from dib_tpu_torch.train.hooks import all_features_bounds
+from dib_tpu_torch.workloads import run_amorphous_sweep
 
 torch.set_num_threads(1)
 
@@ -104,6 +107,13 @@ def test_entry_points_default_to_cuda_and_never_fall_back(monkeypatch):
     model = DistributedIBModel((1, 1), **CONFIG, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(model)
+    stacked = PerParticleDIBModel(num_particles=2, encoder_hidden=(4,), embedding_dim=2,
+                                  num_blocks=1, num_heads=1, key_dim=2, ff_hidden=(4,),
+                                  head_hidden=(4,), device="cpu", replicas=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BetaSweepTrainer(stacked, None, TrainConfig(), 1e-3, [1e-2, 1e-1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_amorphous_sweep()
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(monkeypatch, capsys):
