@@ -14,7 +14,8 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      fail unless the density kernels show no stack and no spills
   3. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main paths give it (the sweep's too: flash at B = 8 x 32
-     and 8 x 1024), and the flash kernel's gradients; for
+     and 8 x 1024, in float32 and in bfloat16), and the flash kernel's
+     gradients (at B = 8 x 32 in both types too); for
      bfloat16 inputs the flash kernel is the tensor-core one, whose SASS
      must hold HMMA instructions, and for float32 inputs the CUDA-core one,
      whose SASS must hold none (both checked after the build)
@@ -29,7 +30,10 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      the number of steps
   6. one training step on the flash path against the dense path, from the
      same weights, batch and noise; and on that step's own inputs, each
-     block's flash q/k/v gradients against float64
+     block's flash q/k/v gradients against float64; then the same pair of
+     steps with ``compute_dtype='bfloat16'`` (the tensor-core flash kernel
+     against dense bf16 attention with float32 scores), held to the
+     gradient's norm
   7. the automatic regime: a full-width set transformer on a set of 1024
      launches the kernel with no flag set
   8. main path 3, the flagship driver: ``run_amorphous_workload`` at full
@@ -47,6 +51,14 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      G = 400); the hook's kernel path held to the plain path; replicas 0
      and 7 held to a serial trainer from the same weights, endpoints and
      seeds, beside a serial witness run with dense attention
+ 9b. main path 6, the north star: phase 9's sweep with
+     ``compute_dtype='bfloat16'`` and ``SweepCompressionHook(features=(0,))``
+     beside the MI hook; phase 9's checks, every flash launch bf16, the
+     float32 contract (parameters, logits, mus, logvars, KL), one .npz of
+     [8, 1024, 32] per hook call, each replica's scheme held to its carved
+     model's ``encode_feature``; then one bf16 forward and training step of
+     the flagship on the card held to the same calls on the CPU, and the
+     card step with cuBLAS's reduced-precision bf16 reductions allowed
  10. main path 4, the kernel microbench
      (``dib_tpu_torch.scripts.bench_kernels``, the path of the log-density
      matrix kernel): its record on one line, every arm held to the plain
@@ -54,8 +66,10 @@ Phases (any failure exits nonzero; nothing is caught and continued):
  11. CUDA-event timings of the kernels, their plain versions and the
      library call beside their bounds; the MI query, predict, the training
      step (flash and dense), the MI hook, the probe hook and the driver;
-     the sweep step beside 8 serial steps, the sweep's MI hook beside 8
-     serial hooks, the validation pass's peak memory; profiler breakdowns
+     the sweep step, float32 and bfloat16 in turns, beside 8 serial steps,
+     the sweep's MI hook beside 8 serial hooks, the validation pass's time
+     and peak memory in both types, one compression hook call; profiler
+     breakdowns
  12. one JSON line listing each ported kernel
  13. the last line: ``{"ok": true, "device": {...}}``
 
@@ -102,6 +116,15 @@ SWEEP_TOL = 1e-4          # a sweep replica vs the serial trainer, relative
 SWEEP_FLIPS = 3           # ... its accuracy rows: predictions flipped per epoch
 SWEEP_BIAS_TOL = 5e-2     # ... each bias leaf, relative to its norm
 SWEEP_HELD = (0, 7)       # the replicas held to the serial trainer
+# bfloat16 compute (phases 6 and 9b), relative to the gradient's norm: the
+# flash step vs the dense step with float32 scores (both round p to bf16
+# before p . v; 4e-4 to 1.4e-3 apart on four CPU batches at full width,
+# each 1-2% from the float32 step); the card's step vs the CPU's, and at
+# most BF16_SHARE of the CPU's own bf16-vs-float32 spread
+BF16_PATH_TOL = 2e-2
+BF16_STEP_TOL = 2e-2
+BF16_SHARE = 0.25
+BF16_MODEL = {"compute_dtype": "bfloat16"}
 # H100 SXM published peaks: f32 on the CUDA cores, dense bf16 tensor cores,
 # HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -437,6 +460,16 @@ def check_flash():
                .to(torch.bfloat16).unbind(2)), BF16_TOL),
         ("q, k x 100 B=4 S=64 H=12 D=128 bf16",
          attention_inputs(gen, 4, 64, 12, 128, torch.bfloat16, scale=100.0), BF16_TOL),
+        # the untrained flagship's block 0 (|scale q . k| ~ 1e8): p must keep its max at 2^0
+        ("q, k x 1e4 B=4 S=50 H=12 D=128 bf16",
+         attention_inputs(gen, 4, 50, 12, 128, torch.bfloat16, scale=1e4), BF16_TOL),
+        ("q, k x 1e4 B=4 S=50 H=12 D=128 f32",
+         attention_inputs(gen, 4, 50, 12, 128, scale=1e4), F32_TOL),
+        # the north star's bf16 sweep: a step's 8 x 32 sets and a validation pass's 8 x 1024
+        ("sweep step B=8x32 S=50 H=12 D=128 bf16",
+         attention_inputs(gen, 8 * 32, 50, 12, 128, torch.bfloat16), BF16_TOL),
+        ("sweep validation B=8x1024 S=50 H=12 D=128 bf16",
+         attention_inputs(gen, 8 * 1024, 50, 12, 128, torch.bfloat16), BF16_TOL),
     ]
     errors = {}
     for name, (q, k, v), tol in cases:
@@ -451,7 +484,8 @@ def check_flash():
     # backward) against autograd through the plain version
     for b, s, dtype, label, tol in ((4, 1024, torch.float32, "f32", GRAD_TOL),
                                     (4, 1024, torch.bfloat16, "bf16", BF16_TOL),
-                                    (8 * 32, 50, torch.float32, "f32 (sweep step)", GRAD_TOL)):
+                                    (8 * 32, 50, torch.float32, "f32 (sweep step)", GRAD_TOL),
+                                    (8 * 32, 50, torch.bfloat16, "bf16 (sweep step)", BF16_TOL)):
         q, k, v = (t.requires_grad_() for t in attention_inputs(gen, b, s, 12, 128, dtype))
         attention.flash_self_attention(q, k, v).square().sum().backward()
         got = [t.grad.clone() for t in (q, k, v)]
@@ -460,7 +494,7 @@ def check_flash():
         attention.flash_self_attention_reference(q, k, v).square().sum().backward()
         compare(f"flash_attention gradients dq, dk, dv B={b} S={s} H=12 D=128 {label}", got,
                 [t.grad for t in (q, k, v)], tol)
-    return errors[cases[0][0]], errors["B=4 S=1024 H=12 D=128 bf16"]
+    return errors[cases[0][0]], errors["sweep step B=8x32 S=50 H=12 D=128 bf16"]
 
 
 def density_inputs(rng, n, m, d):
@@ -832,7 +866,76 @@ def compare_paths(flagship):
           f"tol {PATH_TOL} of the norm")
     hold_attention_gradients(records)
     return dict(x=x, y=y, eps=eps, beta=beta, flash=steps["flash"][:2],
-                dense=steps["dense"][:2])
+                dense=steps["dense"][:2], dense_grads=dg)
+
+
+def relative_distance(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every leaf of two gradients."""
+    diff = math.sqrt(sum((got[n] - w).float().square().sum().item() for n, w in want.items()))
+    return diff / math.sqrt(sum(w.float().square().sum().item() for w in want.values()))
+
+
+def compare_paths_bf16(flagship, step):
+    """Phase 6 in bfloat16: one training step of the bf16 flagship through
+    the tensor-core flash kernel against one through dense bf16 attention
+    with float32 scores (``DIB_ATTN_SCORE_DTYPE=float32``: the same rounding
+    points, p rounded to bfloat16 before p . v), from phase 6's weights,
+    batch and noise. Held as phase 6 holds float32, by the loss, KL and
+    gradient against the gradient's norm (BF16_PATH_TOL; block 0's near
+    one-hot softmax is where a wrong row sum in the flash backward shows:
+    it once moved the flash step by 27%). Printed beside it: each step's
+    distance from phase 6's float32 dense step, and the dense step's with
+    bfloat16 scores, the default."""
+    from dib_tpu_torch.ops import attention
+    from dib_tpu_torch.train import DIBTrainer
+    from dib_tpu_torch.workloads import build_model
+
+    config, train_config, bundle = flagship["config"], flagship["train_config"], flagship["bundle"]
+    stats, grads = {}, {}
+    saved_env = os.environ.get("DIB_ATTN_SCORE_DTYPE")
+    for name, use_flash, scores in (("flash", True, None), ("dense", False, "float32"),
+                                    ("dense bf16 scores", False, "bfloat16")):
+        model = build_model(config, device="cuda", use_flash=use_flash,
+                            generator=torch.Generator().manual_seed(SEED + 2), **BF16_MODEL)
+        trainer = DIBTrainer(model, bundle, train_config)
+        state, _ = trainer.init()
+        before = (attention.flash_attention_launches, attention.flash_attention_bf16_launches)
+        if scores is not None:
+            os.environ["DIB_ATTN_SCORE_DTYPE"] = scores
+        try:
+            stats[name] = trainer.train_step(state, step["x"], step["y"], step["beta"],
+                                             step["eps"])
+        finally:
+            if saved_env is None:
+                os.environ.pop("DIB_ATTN_SCORE_DTYPE", None)
+            else:
+                os.environ["DIB_ATTN_SCORE_DTYPE"] = saved_env
+        torch.cuda.synchronize()
+        launched = (attention.flash_attention_launches - before[0],
+                    attention.flash_attention_bf16_launches - before[1])
+        blocks = len(model.aggregator.blocks)
+        if launched != ((blocks, blocks) if use_flash else (0, 0)):
+            fail(f"bf16 {name} training step launched the flash kernel {launched} times "
+                 "(all, bf16)")
+        grads[name] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        if any(p.dtype != torch.float32 for p in model.parameters()) or \
+                any(t.dtype != torch.float32 for t in stats[name].values()):
+            fail(f"bf16 {name} training step: a parameter or a statistic is not float32")
+    fs, ds = stats["flash"], stats["dense"]
+    loss_err = max(abs(fs["task"].item() - ds["task"].item()),
+                   (fs["kl"] - ds["kl"]).abs().max().item())
+    path = relative_distance(grads["flash"], grads["dense"])
+    spread = {name: relative_distance(g, step["dense_grads"]) for name, g in grads.items()}
+    print(f"check bf16 training step flash vs dense with f32 scores (same weights, batch, "
+          f"noise): task {fs['task'].item():.7f} vs {ds['task'].item():.7f}, loss/KL "
+          f"max_abs_err {loss_err:.3e}; gradient difference {path:.3e} of its norm, tol "
+          f"{BF16_PATH_TOL}; distance from the f32 dense step: flash {spread['flash']:.3e}, "
+          f"dense {spread['dense']:.3e}, dense with bf16 scores (the default) "
+          f"{spread['dense bf16 scores']:.3e}")
+    if path > BF16_PATH_TOL or not all(torch.isfinite(g).all() for g in grads["flash"].values()):
+        fail(f"bf16 flash vs dense step: the gradients differ by {path:.3e} of their norm")
+    if loss_err > BF16_PATH_TOL * max(1.0, abs(ds["task"].item())):
+        fail(f"bf16 flash vs dense step: task loss or KL differ by {loss_err:.3e}")
 
 
 # --------------------------------------------------------------------------
@@ -994,12 +1097,46 @@ def drive_amorphous():
 # --------------------------------------------------------------------------
 # phase 9: main path 5, the beta sweep
 
+def run_sweep(config, hooks, model_overrides):
+    """``run_amorphous_sweep`` at full width with phase 9's cuts, the launch
+    counts set to 0 just before and read just after, and the group axis of
+    every ``mi_row_stats`` call recorded. Returns (result, groups, launches,
+    peak device memory in GB)."""
+    from dib_tpu_torch.ops import attention, density, info_bounds
+    from dib_tpu_torch.workloads import run_amorphous_sweep
+
+    groups = []
+    plain_call = info_bounds.mi_row_stats
+
+    def counting(u, mus, logvars, diagonal=True):
+        groups.append(u.shape[0])
+        return plain_call(u, mus, logvars, diagonal)
+
+    density.mi_row_stats_launches = 0
+    attention.flash_attention_launches = 0
+    attention.flash_attention_bf16_launches = 0
+    density.log_density_mat_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    info_bounds.mi_row_stats = counting
+    try:
+        result = run_amorphous_sweep(SEED, config, steps_per_epoch=SWEEP_STEPS_PER_EPOCH,
+                                     chunk_epochs=SWEEP_CHUNK, hooks=hooks, render=False,
+                                     model_overrides=model_overrides,
+                                     num_synthetic_neighborhoods=SWEEP_NEIGHBORHOODS)
+    finally:
+        info_bounds.mi_row_stats = plain_call
+    torch.cuda.synchronize()
+    launches = {"mi_row_stats": density.mi_row_stats_launches,
+                "flash_attention": attention.flash_attention_launches,
+                "flash_attention_bf16": attention.flash_attention_bf16_launches,
+                "log_density_mat": density.log_density_mat_launches}
+    return result, groups, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
 def drive_sweep():
     from dib_tpu_torch.data import get_dataset
-    from dib_tpu_torch.ops import attention, density, info_bounds
-    from dib_tpu_torch.ops.schedules import log_annealed_beta
     from dib_tpu_torch.parallel import SweepInfoPerFeatureHook
-    from dib_tpu_torch.workloads import AmorphousWorkloadConfig, run_amorphous_sweep
+    from dib_tpu_torch.workloads import AmorphousWorkloadConfig
 
     config = dataclasses.replace(AmorphousWorkloadConfig(),
                                  num_steps=SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH)
@@ -1010,68 +1147,10 @@ def drive_sweep():
           f"synthetic neighbourhoods (1024 validation rows); cut: steps_per_epoch 50 -> "
           f"{SWEEP_STEPS_PER_EPOCH}, chunk_epochs 25 -> {SWEEP_CHUNK}, {SWEEP_EPOCHS} epochs "
           f"({config.num_steps} steps); render=False")
-    groups = []
-    plain_call = info_bounds.mi_row_stats
-
-    def counting(u, mus, logvars, diagonal=True):
-        groups.append(u.shape[0])
-        return plain_call(u, mus, logvars, diagonal)
-
-    density.mi_row_stats_launches = 0
-    attention.flash_attention_launches = 0
-    density.log_density_mat_launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    info_bounds.mi_row_stats = counting
-    try:
-        result = run_amorphous_sweep(SEED, config, steps_per_epoch=SWEEP_STEPS_PER_EPOCH,
-                                     chunk_epochs=SWEEP_CHUNK, hooks=[hook], render=False,
-                                     model_overrides={"use_flash": True},
-                                     num_synthetic_neighborhoods=SWEEP_NEIGHBORHOODS)
-    finally:
-        info_bounds.mi_row_stats = plain_call
-    torch.cuda.synchronize()
-    launches = {"mi_row_stats": density.mi_row_stats_launches,
-                "flash_attention": attention.flash_attention_launches,
-                "log_density_mat": density.log_density_mat_launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    model = result["states"].params["model"]
-    ends, records = result["beta_ends"], result["records"]
-    replicas = len(ends)
-    n_params = sum(p.numel() for p in model.parameters())
-    steps = SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH
-    calls = len(hook.records)
-    print(f"main path launches (sweep, R={replicas}, {steps} steps, {SWEEP_EPOCHS} validation "
-          f"passes, {calls} MI hook calls): {json.dumps(launches)}; mi_row_stats groups per "
-          f"call {groups}; peak device memory {peak_gb:.3f} GB")
-    if replicas != 8 or model.replicas != 8 or n_params != 8 * 1_293_505:
-        fail(f"sweep: {replicas} members of {n_params / max(replicas, 1)} parameters, "
-             f"expected 8 of 1,293,505")
-    want_flash = len(model.aggregator.blocks) * (steps + SWEEP_EPOCHS)
-    if launches["flash_attention"] != want_flash:
-        fail(f"sweep: {launches['flash_attention']} flash launches, expected {want_flash} "
-             f"(6 per step and per validation pass, whatever R is)")
-    if calls != SWEEP_EPOCHS // SWEEP_CHUNK or \
-            launches["mi_row_stats"] != config.mi_eval_batches * calls or \
-            groups != [replicas * config.number_particles] * launches["mi_row_stats"]:
-        fail(f"sweep: {calls} MI hook calls, {launches['mi_row_stats']} mi_row_stats launches "
-             f"over groups {groups}; expected {config.mi_eval_batches} per call at "
-             f"G = {replicas * config.number_particles}")
-    epochs = torch.arange(SWEEP_EPOCHS)
-    for r, (end, record) in enumerate(zip(ends, records)):
-        for name in ("loss", "val_loss", "metric", "val_metric", "kl_per_feature"):
-            if not np.isfinite(getattr(record, name)).all():
-                fail(f"sweep: replica {r} has non-finite {name}")
-        want_beta = log_annealed_beta(epochs, config.beta_start, float(end),
-                                      SWEEP_EPOCHS).numpy()
-        if not np.allclose(record.beta, want_beta, rtol=1e-6, atol=0.0) or \
-                not (np.diff(record.beta) > 0).all():
-            fail(f"sweep: replica {r} beta {record.beta} does not follow its endpoint {end}")
-    bounds = np.stack([rec["bounds"] for rec in hook.records])     # [T, R, P, 2] nats
-    if bounds.shape != (calls, replicas, config.number_particles, 2) or \
-            not np.isfinite(bounds).all() or \
-            not (bounds[..., 0] <= bounds[..., 1] + BOUNDS_TOL).all() or \
-            not (bounds[..., 0] <= math.log(config.mi_eval_batch_size) + BOUNDS_TOL).all():
-        fail(f"sweep: MI bounds of shape {bounds.shape}, non-finite or out of order")
+    result, groups, launches, peak_gb = run_sweep(config, [hook], {"use_flash": True})
+    model, records = result["states"].params["model"], result["records"]
+    replicas, steps = model.replicas, SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH
+    bounds = check_sweep_run("sweep", result, hook, groups, launches, config, peak_gb)
     bundle = get_dataset("amorphous_particles", number_particles_to_use=config.number_particles,
                          num_synthetic_neighborhoods=SWEEP_NEIGHBORHOODS)
     if len(bundle.x_valid) != config.train_config().max_val_points:
@@ -1088,6 +1167,55 @@ def drive_sweep():
           f"{hook_upper_err:.3e}; {serial_errs}")
     return dict(config=config, result=result, hook=hook, bundle=bundle, launches=launches,
                 peak_gb=peak_gb)
+
+
+def check_sweep_run(label, result, hook, groups, launches, config, peak_gb):
+    """The checks phases 9 and 9b share: 8 members of 1,293,505 parameters;
+    6 flash launches per step and per validation pass whatever R is;
+    ``mi_row_stats`` 4 times per hook call over G = R x P groups; every
+    replica finite with its own beta ramp; the MI bounds finite, lower below
+    upper and below log(batch). Returns the bounds [T, R, P, 2] in nats."""
+    from dib_tpu_torch.ops.schedules import log_annealed_beta
+
+    model = result["states"].params["model"]
+    ends, records = result["beta_ends"], result["records"]
+    replicas = len(ends)
+    n_params = sum(p.numel() for p in model.parameters())
+    steps = SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH
+    calls = len(hook.records)
+    print(f"main path launches ({label}, R={replicas}, {steps} steps, {SWEEP_EPOCHS} validation "
+          f"passes, {calls} MI hook calls): {json.dumps(launches)}; mi_row_stats groups per "
+          f"call {groups}; peak device memory {peak_gb:.3f} GB")
+    if replicas != 8 or model.replicas != 8 or n_params != 8 * 1_293_505:
+        fail(f"{label}: {replicas} members of {n_params / max(replicas, 1)} parameters, "
+             f"expected 8 of 1,293,505")
+    want_flash = len(model.aggregator.blocks) * (steps + SWEEP_EPOCHS)
+    if launches["flash_attention"] != want_flash:
+        fail(f"{label}: {launches['flash_attention']} flash launches, expected {want_flash} "
+             f"(6 per step and per validation pass, whatever R is)")
+    if calls != SWEEP_EPOCHS // SWEEP_CHUNK or \
+            launches["mi_row_stats"] != config.mi_eval_batches * calls or \
+            groups != [replicas * config.number_particles] * launches["mi_row_stats"]:
+        fail(f"{label}: {calls} MI hook calls, {launches['mi_row_stats']} mi_row_stats launches "
+             f"over groups {groups}; expected {config.mi_eval_batches} per call at "
+             f"G = {replicas * config.number_particles}")
+    epochs = torch.arange(SWEEP_EPOCHS)
+    for r, (end, record) in enumerate(zip(ends, records)):
+        for name in ("loss", "val_loss", "metric", "val_metric", "kl_per_feature"):
+            if not np.isfinite(getattr(record, name)).all():
+                fail(f"{label}: replica {r} has non-finite {name}")
+        want_beta = log_annealed_beta(epochs, config.beta_start, float(end),
+                                      SWEEP_EPOCHS).numpy()
+        if not np.allclose(record.beta, want_beta, rtol=1e-6, atol=0.0) or \
+                not (np.diff(record.beta) > 0).all():
+            fail(f"{label}: replica {r} beta {record.beta} does not follow its endpoint {end}")
+    bounds = np.stack([rec["bounds"] for rec in hook.records])     # [T, R, P, 2] nats
+    if bounds.shape != (calls, replicas, config.number_particles, 2) or \
+            not np.isfinite(bounds).all() or \
+            not (bounds[..., 0] <= bounds[..., 1] + BOUNDS_TOL).all() or \
+            not (bounds[..., 0] <= math.log(config.mi_eval_batch_size) + BOUNDS_TOL).all():
+        fail(f"{label}: MI bounds of shape {bounds.shape}, non-finite or out of order")
+    return bounds
 
 
 def hold_sweep_hook(model, bundle, config):
@@ -1242,6 +1370,169 @@ def hold_sweep_replicas(result, bundle, config):
 
 
 # --------------------------------------------------------------------------
+# phase 9b: main path 6, the north star in bfloat16
+
+def drive_northstar():
+    """The reference's north-star configuration: phase 9's sweep with
+    ``compute_dtype='bfloat16'`` (flash attention on the tensor-core kernel)
+    and, beside the MI hook, ``SweepCompressionHook(features=(0,))``, the
+    schemes written to a temporary directory. The same cuts and checks as
+    phase 9, and: every flash launch bfloat16; parameters, logits, mus,
+    logvars and KL float32; one .npz per hook call holding [8, 1024, 32]
+    finite channel parameters, each replica's equal (BF16_TOL, atol = rtol)
+    to ``model.carve(r).encode_feature(0, rows)`` on the card."""
+    import tempfile
+
+    from dib_tpu_torch.data import get_dataset
+    from dib_tpu_torch.ops.schedules import log_annealed_beta
+    from dib_tpu_torch.parallel import SweepCompressionHook, SweepInfoPerFeatureHook
+    from dib_tpu_torch.workloads import AmorphousWorkloadConfig
+
+    config = dataclasses.replace(AmorphousWorkloadConfig(),
+                                 num_steps=SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH)
+    info = SweepInfoPerFeatureHook(config.mi_eval_batch_size, config.mi_eval_batches, seed=SEED)
+    with tempfile.TemporaryDirectory(prefix="northstar_schemes_") as outdir:
+        schemes = SweepCompressionHook(outdir, features=(0,))
+        print(f"north star: phase 9's sweep with compute_dtype='bfloat16', use_flash=True, "
+              f"hooks SweepInfoPerFeatureHook({config.mi_eval_batch_size}, "
+              f"{config.mi_eval_batches}) and SweepCompressionHook(features=(0,)); same cuts")
+        result, groups, launches, peak_gb = run_sweep(config, [info, schemes],
+                                                      {**BF16_MODEL, "use_flash": True})
+        bounds = check_sweep_run("north star", result, info, groups, launches, config, peak_gb)
+        if launches["flash_attention_bf16"] != launches["flash_attention"]:
+            fail(f"north star: {launches['flash_attention_bf16']} of "
+                 f"{launches['flash_attention']} flash launches were bfloat16")
+        model = result["states"].params["model"]
+        bundle = get_dataset("amorphous_particles",
+                             number_particles_to_use=config.number_particles,
+                             num_synthetic_neighborhoods=SWEEP_NEIGHBORHOODS)
+        rows = torch.as_tensor(bundle.x_valid, device="cuda")
+        check_bf16_outputs("north star", model, rows[None, :64].expand(model.replicas, -1, -1))
+        calls = len(info.records)
+        want = [f"scheme_epoch{SWEEP_CHUNK * (c + 1)}_feature0.npz" for c in range(calls)]
+        if [os.path.basename(rec["path"]) for rec in schemes.saved] != want or \
+                sorted(os.listdir(os.path.join(outdir, "schemes"))) != sorted(want):
+            fail(f"north star: schemes {schemes.saved}, expected {want}")
+        particle_rows = rows[:, :model.particle_feature_dim]     # feature 0's columns
+        worst = 0.0
+        for rec in schemes.saved:
+            with np.load(rec["path"]) as data:
+                saved = {name: torch.from_numpy(data[name]) for name in ("mus", "logvars")}
+                betas = data["betas"]
+            shape = (model.replicas, len(bundle.x_valid), model.embedding_dim)
+            if any(t.shape != shape or not torch.isfinite(t).all() for t in saved.values()):
+                fail(f"north star: {rec['path']} holds {[tuple(t.shape) for t in saved.values()]}"
+                     f", expected {shape} finite")
+            want = [float(log_annealed_beta(rec["epoch"], config.beta_start, float(end),
+                                            SWEEP_EPOCHS)) for end in result["beta_ends"]]
+            if not np.allclose(betas, want):
+                fail(f"north star: {rec['path']} betas {betas}, expected {want}")
+        with torch.inference_mode():     # the last call saw the final weights
+            for r in range(model.replicas):
+                mus, logvars = model.carve(r).encode_feature(0, particle_rows)
+                err = compare(f"north star scheme replica {r} vs carve({r}).encode_feature",
+                              [saved["mus"][r], saved["logvars"][r]],
+                              [mus.cpu(), logvars.cpu()], BF16_TOL)
+                worst = max(worst, err["max_abs_err"])
+    records = result["records"]
+    print(f"north star: {SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH} steps x {model.replicas} "
+          f"replicas in {result['wall_clock_s']:.3f} s (host clock, one run, first call); final "
+          f"loss per replica {[round(float(r.loss[-1]), 6) for r in records]}; MI hook at epochs "
+          f"{info.epochs.tolist()}, mean lower bound per replica (nats) "
+          f"{bounds[-1, ..., 0].mean(-1).round(5).tolist()}; {len(schemes.saved)} schemes "
+          f"[{model.replicas}, {len(bundle.x_valid)}, {model.embedding_dim}], vs carve(r) "
+          f"max_abs_err={worst:.3e} tol={BF16_TOL}")
+    return dict(config=config, result=result, info=info, bundle=bundle, launches=launches,
+                peak_gb=peak_gb)
+
+
+def check_bf16_outputs(label, model, x):
+    """A bfloat16 model's contract on the card: float32 parameters, and
+    float32 finite logits, mus, logvars and KL from one forward of ``x``."""
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        fail(f"{label}: a parameter is not float32")
+    with torch.no_grad():
+        prediction, aux = model(x, generator=torch.Generator(device=x.device).manual_seed(SEED))
+    for name, t in (("logits", prediction), ("mus", aux["mus"]), ("logvars", aux["logvars"]),
+                    ("KL", aux["kl_per_feature"])):
+        if t.dtype != torch.float32 or not torch.isfinite(t).all():
+            fail(f"{label}: {name} is {t.dtype}, or not finite")
+
+
+def hold_bf16_card_vs_cpu(flagship):
+    """One bfloat16 forward and one bfloat16 training step of the full-width
+    flagship on the card (the bf16 flash kernel, cuBLAS) against the same
+    calls on the CPU (the plain versions, CPU GEMMs), from the same weights,
+    batch and noise: the link from the kernels to the CPU parity tests
+    against the JAX package. Logits, mus, logvars and KL to BF16_TOL (atol
+    = rtol), the gradient to BF16_STEP_TOL of its norm and to BF16_SHARE of
+    the CPU's own bf16-vs-float32 spread (the CPU tests' quarter rule: the
+    same rounding points). Then the card step again
+    with cuBLAS allowed to reduce bf16 products in reduced precision, against
+    the port's setting (float32 reductions)."""
+    import copy
+
+    from dib_tpu_torch.train import DIBTrainer
+    from dib_tpu_torch.workloads import build_model
+
+    config, train_config, bundle = flagship["config"], flagship["train_config"], flagship["bundle"]
+    batch, beta = train_config.batch_size, train_config.beta_start
+    x = torch.as_tensor(bundle.x_train[-batch:])
+    y = torch.as_tensor(bundle.y_train[-batch:])
+    base = {}
+
+    def run(device, overrides, reduced=False):
+        key = (device, tuple(overrides))
+        if key not in base:
+            base[key] = build_model(config, device=device, use_flash=True,
+                                    generator=torch.Generator().manual_seed(SEED + 13),
+                                    **overrides)
+        model = copy.deepcopy(base[key])
+        eps = torch.randn(model.noise_shape(batch),
+                          generator=torch.Generator().manual_seed(SEED + 14)).to(device)
+        trainer = DIBTrainer(model, bundle, train_config, device=device)
+        state, _ = trainer.init()
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_bf16_reduced_precision_reduction = reduced
+        try:
+            with torch.no_grad():
+                prediction, aux = model(x.to(device), eps=eps)
+            stats = trainer.train_step(state, x.to(device), y.to(device), beta, eps)
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = False
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        outputs = [prediction, aux["mus"], aux["logvars"], aux["kl_per_feature"], stats["task"]]
+        return [t.detach().cpu() for t in outputs], grads
+
+    card, card_grads = run("cuda", BF16_MODEL)
+    cpu, cpu_grads = run("cpu", BF16_MODEL)
+    cpu_f32, cpu_f32_grads = run("cpu", {})
+    reduced, reduced_grads = run("cuda", BF16_MODEL, reduced=True)
+    for name, t in zip(("logits", "mus", "logvars", "KL", "task loss"), card):
+        if t.dtype != torch.float32:
+            fail(f"bf16 flagship on the card: {name} is {t.dtype}")
+    err = compare("bf16 flagship forward and step statistics, card vs CPU (logits, mus, "
+                  "logvars, KL, task loss)", card, cpu, BF16_TOL)
+    step = relative_distance(card_grads, cpu_grads)
+    spread = relative_distance(cpu_grads, cpu_f32_grads)
+    logit_spread = (cpu[0] - cpu_f32[0]).abs().max().item()
+    flag_logits = (reduced[0] - card[0]).abs().max().item()
+    flag_step = relative_distance(reduced_grads, card_grads)
+    print(f"check bf16 flagship training step, card vs CPU: gradient difference {step:.3e} of "
+          f"its norm, tol {BF16_STEP_TOL}; the CPU's bf16 vs f32 step: {spread:.3e} of the "
+          f"norm, logits max_abs_err {logit_spread:.3e} (card vs CPU {err['max_abs_err']:.3e})")
+    print(f"check allow_bf16_reduced_precision_reduction=True vs False (the port's setting) on "
+          f"the card: logits max_abs_diff {flag_logits:.3e}, gradient difference "
+          f"{flag_step:.3e} of its norm")
+    if step > BF16_STEP_TOL or not all(torch.isfinite(g).all() for g in card_grads.values()):
+        fail(f"bf16 flagship step, card vs CPU: gradients differ by {step:.3e} of their norm")
+    if step > BF16_SHARE * spread:
+        fail(f"bf16 flagship step, card vs CPU: {step:.3e} of the norm, beyond {BF16_SHARE} x "
+             f"the CPU's own bf16 vs f32 spread {spread:.3e}: other rounding points")
+    return dict(step=step, spread=spread, flag_logits=flag_logits, flag_step=flag_step)
+
+
+# --------------------------------------------------------------------------
 # phase 10: main path 4, the kernel microbench
 
 def run_microbench():
@@ -1288,6 +1579,7 @@ def time_flash(card):
         "S=50 B=307": (307, 50, 12, 128, torch.float32),
         "S=1024": (4, 1024, 12, 128, torch.float32),
         "S=50 bf16": (32, 50, 12, 128, torch.bfloat16),
+        "S=50 B=256 bf16": (8 * 32, 50, 12, 128, torch.bfloat16),
         "S=1024 bf16": (4, 1024, 12, 128, torch.bfloat16),
     }.items():
         q, k, v = attention_inputs(gen, b, s, h, d, dtype)
@@ -1411,37 +1703,50 @@ def time_probe_hook(card, driver):
     return probe_ms
 
 
-def time_sweep(card, sweep_run, step, flagship):
-    """The stacked sweep step beside the serial flash step (x 8 is the serial
-    sweep), in turns; one SweepInfoPerFeatureHook call beside one serial
-    InfoPerFeatureHook call (x 8); the sweep step by kernel; the validation
-    pass's time and peak memory."""
-    from dib_tpu_torch.parallel import BetaSweepTrainer, StackedDraws
+def time_sweep(card, sweep_run, northstar, step, flagship):
+    """The stacked sweep step in float32 and in bfloat16 (the north star's)
+    beside the serial flash step (x 8 is the serial sweep), in turns, each
+    by kernel; one SweepInfoPerFeatureHook call beside one serial
+    InfoPerFeatureHook call (x 8); the validation pass's time and peak memory
+    in both types; one SweepCompressionHook call."""
+    import tempfile
+
+    from dib_tpu_torch.parallel import BetaSweepTrainer, StackedDraws, SweepCompressionHook
     from dib_tpu_torch.train import GeneratorDraws
 
     config, bundle, result = sweep_run["config"], sweep_run["bundle"], sweep_run["result"]
     train_config = config.train_config(SWEEP_STEPS_PER_EPOCH)
-    model, states = result["states"].params["model"], result["states"]
-    sweep = BetaSweepTrainer(model, bundle, train_config, config.beta_start, result["beta_ends"])
-    replicas, batch = model.replicas, train_config.batch_size
+    sweeps = {}
+    for name, run in (("f32", result), ("bf16", northstar["result"])):
+        sweeps[name] = (BetaSweepTrainer(run["states"].params["model"], bundle, train_config,
+                                         config.beta_start, run["beta_ends"]), run["states"])
+    sweep, states = sweeps["f32"]
+    replicas, batch = sweep.model.replicas, train_config.batch_size
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     rows = torch.randint(0, bundle.x_train.shape[0], (replicas, batch), generator=gen,
                          device="cuda")
     x = torch.as_tensor(bundle.x_train, device="cuda")[rows]
     y = torch.as_tensor(bundle.y_train, device="cuda")[rows]
-    eps = torch.randn(model.noise_shape(batch), generator=gen, device="cuda")
+    eps = torch.randn(sweep.model.noise_shape(batch), generator=gen, device="cuda")
     beta = sweep.betas([0])[0]
     (serial_trainer, serial_state) = step["flash"]
-    fns = {"sweep": lambda: sweep.train_step(states, x, y, beta, eps),
-           "serial": lambda: serial_trainer.train_step(serial_state, step["x"], step["y"],
-                                                       step["beta"], step["eps"])}
+    fns = {f"sweep {name}": (lambda sw=sw, st=st: sw.train_step(st, x, y, beta, eps))
+           for name, (sw, st) in sweeps.items()}
+    fns["serial"] = lambda: serial_trainer.train_step(serial_state, step["x"], step["y"],
+                                                      step["beta"], step["eps"])
     step_ms = host_ms(fns)
-    print(f"timing [{card}] sweep training step, {replicas} replicas x batch {batch}, full "
-          f"width, flash: {step_ms['sweep']:.4f} ms; serial flash step {step_ms['serial']:.4f} "
-          f"ms, x {replicas} = {replicas * step_ms['serial']:.4f} ms (host clock, median of 10 "
-          f"in turns); speedup {replicas * step_ms['serial'] / step_ms['sweep']:.2f}x")
-    print(f"profile [{card}] sweep training step: "
-          f"{profile_breakdown(fns['sweep'], top=8, unprofiled_ms=step_ms['sweep'])}")
+    for name in sweeps:
+        ms = step_ms[f"sweep {name}"]
+        print(f"timing [{card}] sweep training step {name}, {replicas} replicas x batch {batch}, "
+              f"full width, flash: {ms:.4f} ms; serial f32 flash step {step_ms['serial']:.4f} ms, "
+              f"x {replicas} = {replicas * step_ms['serial']:.4f} ms (host clock, median of 10 in "
+              f"turns with the other sweep step); speedup {replicas * step_ms['serial'] / ms:.2f}x")
+    print(f"timing [{card}] sweep training step bf16 vs f32 (host clock, in turns): "
+          f"{step_ms['sweep bf16']:.4f} vs {step_ms['sweep f32']:.4f} ms, "
+          f"{step_ms['sweep f32'] / step_ms['sweep bf16']:.2f}x")
+    for name in sweeps:
+        print(f"profile [{card}] sweep training step {name}: "
+              f"{profile_breakdown(fns[f'sweep {name}'], top=8, unprofiled_ms=step_ms[f'sweep {name}'])}")
 
     hook, trainer, state = flagship["hook"], flagship["trainer"], flagship["state"]
     sweep_hook = sweep_run["hook"]
@@ -1453,25 +1758,40 @@ def time_sweep(card, sweep_run, step, flagship):
           f"{hook_ms['serial']:.4f} ms, x {replicas} = {replicas * hook_ms['serial']:.4f} ms "
           f"(host clock, median of 5 in turns)")
 
-    generators = [torch.Generator(device="cuda").manual_seed(SEED + 12 + r)
-                  for r in range(replicas)]
-    draws = StackedDraws([GeneratorDraws(g) for g in generators])
-    def validate():
-        return sweep.validate(beta, draws)
+    validation = {}
+    for name, (sw, st) in sweeps.items():
+        generators = [torch.Generator(device="cuda").manual_seed(SEED + 12 + r)
+                      for r in range(replicas)]
+        draws = StackedDraws([GeneratorDraws(g) for g in generators])
 
-    validate()
-    torch.cuda.synchronize()
-    base_bytes = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    validate_ms = host_ms({"validate": validate}, runs=3, warmup=0)["validate"]
-    peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
-    print(f"timing [{card}] sweep validation pass, {replicas} x "
-          f"{min(len(bundle.x_valid), train_config.max_val_points)} sets in one forward: "
-          f"{validate_ms:.4f} ms (host "
-          f"clock, median of 3); peak device memory above the resident "
-          f"{base_bytes / 1e9:.3f} GB: {peak_gb:.3f} GB; whole sweep run's peak "
-          f"{sweep_run['peak_gb']:.3f} GB")
-    return dict(step_ms=step_ms, hook_ms=hook_ms, validate_ms=validate_ms, peak_gb=peak_gb)
+        def validate(sw=sw, draws=draws):
+            return sw.validate(beta, draws)
+
+        validate()
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        validate_ms = host_ms({"validate": validate}, runs=3, warmup=0)["validate"]
+        peak_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+        validation[name] = (validate_ms, peak_gb)
+        print(f"timing [{card}] sweep validation pass {name}, {replicas} x "
+              f"{min(len(bundle.x_valid), train_config.max_val_points)} sets in one forward: "
+              f"{validate_ms:.4f} ms (host clock, median of 3); peak device memory above the "
+              f"resident {base_bytes / 1e9:.3f} GB: {peak_gb:.3f} GB")
+        print(f"profile [{card}] sweep validation pass {name}: "
+              f"{profile_breakdown(validate, top=6, unprofiled_ms=validate_ms)}")
+    print(f"timing [{card}] whole sweep runs' peak device memory: f32 {sweep_run['peak_gb']:.3f} "
+          f"GB, bf16 {northstar['peak_gb']:.3f} GB")
+
+    bf16_sweep, bf16_states = sweeps["bf16"]
+    with tempfile.TemporaryDirectory(prefix="northstar_schemes_") as outdir:
+        schemes = SweepCompressionHook(outdir, features=(0,))
+        schemes_ms = host_ms({"schemes": lambda: schemes(bf16_sweep, bf16_states, 0)},
+                             runs=5)["schemes"]
+    print(f"timing [{card}] SweepCompressionHook(features=(0,)) call, {replicas} replicas x "
+          f"{len(bundle.x_valid)} rows, one stacked encode and one .npz: {schemes_ms:.4f} ms "
+          f"(host clock, median of 5)")
+    return dict(step_ms=step_ms, hook_ms=hook_ms, validation=validation, schemes_ms=schemes_ms)
 
 
 def main() -> int:
@@ -1507,9 +1827,12 @@ def main() -> int:
     serving = serve_and_query()
     flagship = train_flagship()
     paths_step = compare_paths(flagship)
+    compare_paths_bf16(flagship, paths_step)
     auto_regime()
     driver = drive_amorphous()
     sweep_run = drive_sweep()
+    northstar = drive_northstar()
+    card_vs_cpu = hold_bf16_card_vs_cpu(flagship)
     bench_launches = run_microbench()
 
     # ---- 11. timings ---------------------------------------------------
@@ -1571,15 +1894,17 @@ def main() -> int:
           f"{len(driver['result']['mi_epochs'])} MI hook and "
           f"{len(driver['result']['probe_grids'])} probe hook calls: {driver['wall_s']:.3f} s "
           f"(host clock, one run); probe hook {probe_ms:.4f} ms per call")
-    time_sweep(card, sweep_run, paths_step, flagship)
+    time_sweep(card, sweep_run, northstar, paths_step, flagship)
 
     # ---- 12-13. summary lines ------------------------------------------
     runs = (serving["launches"], flagship["launches"], driver["launches"],
-            sweep_run["launches"], bench_launches)
+            sweep_run["launches"], northstar["launches"], bench_launches)
     total = {name: sum(r.get(name, 0) for r in runs)
-             for name in ("mi_row_stats", "flash_attention", "log_density_mat")}
+             for name in ("mi_row_stats", "flash_attention", "flash_attention_bf16",
+                          "log_density_mat")}
     print(f"main path launches, all paths: {json.dumps(total)}; mi_row_stats probe mode in the "
-          f"driver: {driver['probe_launches']}")
+          f"driver: {driver['probe_launches']}; bf16 step card vs CPU {card_vs_cpu['step']:.3e} "
+          f"of the gradient's norm")
     kernels = [{
         "name": "mi_row_stats",
         "route": "cuda",
@@ -1600,8 +1925,8 @@ def main() -> int:
         "launches": total["flash_attention"],
         **flash_err,
         **flash_rows["S=50"],
-        "bf16": {"shape": "B=4 S=1024 H=12 D=128", **flash_bf16_err,
-                 **flash_rows["S=1024 bf16"]},
+        "bf16": {"shape": "B=8x32 S=50 H=12 D=128", "launches": total["flash_attention_bf16"],
+                 **flash_bf16_err, **flash_rows["S=50 B=256 bf16"]},
     }, {
         "name": "log_density_mat",
         "route": "cuda",

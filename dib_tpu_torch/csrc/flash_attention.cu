@@ -102,10 +102,13 @@
 // keeps a partial l that is summed over the quad once, at the end. The
 // exponential is ex2.approx.ftz (the SFU's 2^x) with log2 e folded into
 // the scale: the max m is taken over the f32 products q . k, and p =
-// 2^(fma(q . k, scale2, -m scale2)) with scale2 = scale * log2 e, which is
+// 2^((q . k - m) scale2) with scale2 = scale * log2 e, which is
 // exp(scale q . k - scale m) up to f32 rounding of the argument, with p
 // below 2^-126 flushed to zero (exp2f in its accurate form adds a range
-// fix-up to every one, which measured slower). p never leaves registers:
+// fix-up to every one, which measured slower). The difference comes first,
+// as in the f32 kernel: folding m into an FMA rounded the argument by units
+// at the untrained flagship's block-0 scores (|scale q . k| ~ 1e8), whose
+// bf16 training then turned non-finite after one update. p never leaves registers:
 // two adjacent n8 C fragments, rounded by __floats2bfloat162_rn
 // (round-to-nearest-even, as JAX's astype), are the A fragment of the p.v
 // product. 255 registers (the most a thread can have; two blocks of 128
@@ -603,8 +606,10 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
     // online softmax; element e of s[mt][n] is row 16 mt + group + 8 (e / 2)
     // of the warp, key t * kKeys + 8 n + 2 quad + e % 2. The max is taken
     // over the unscaled products (the scale is positive), and p =
-    // 2^(s scale2 - m scale2) = e^(s scale - m scale), one FMA into the
-    // exponent.
+    // 2^((s - m) scale2) = e^(s scale - m scale), the difference taken
+    // first: at |s scale2| near 1e8 an FMA with -m scale2 rounds the
+    // exponent by units (p off by 2^4 at the max), and near 1e10 to
+    // infinity.
     const bool ragged = (t + 1) * kKeys > seq;
 #pragma unroll
     for (int mt = 0; mt < kMTiles; ++mt) {
@@ -617,14 +622,12 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
           if (ragged && key >= seq) s[mt][n][e] = kNegInf;
           mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][n][e]);
         }
-      float m_scaled[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
         mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
         const float corr = exp2_approx((m[mt][r] - mx[r]) * scale2);
         m[mt][r] = mx[r];
-        m_scaled[r] = mx[r] * scale2;
         l[mt][r] *= corr;
 #pragma unroll
         for (int n = 0; n < kHeadPad / 8; ++n) {
@@ -636,7 +639,7 @@ flash_attention_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __re
       for (int n = 0; n < kKeys / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[mt][n][e] = exp2_approx(fmaf(s[mt][n][e], scale2, -m_scaled[e >> 1]));
+          s[mt][n][e] = exp2_approx((s[mt][n][e] - mx[e >> 1]) * scale2);
           l[mt][e >> 1] += s[mt][n][e];            // the unrounded p
         }
     }

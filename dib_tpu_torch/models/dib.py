@@ -30,6 +30,9 @@ class DistributedIBModel(nn.Module):
     Parameters are initialised on the CPU from ``generator`` (Flax's
     lecun-normal, zero bias) and then moved to ``device`` (``None`` means the
     GPU), so one seed gives the same weights on every device.
+
+    ``compute_dtype`` ('bfloat16') runs the matmuls in that type; the
+    parameters, KL, sampling and the prediction stay float32.
     """
 
     def __init__(self, feature_dimensionalities: Sequence[int],
@@ -39,18 +42,21 @@ class DistributedIBModel(nn.Module):
                  use_positional_encoding: bool = True, num_posenc_frequencies: int = 4,
                  activation: str | Callable | None = "relu",
                  output_activation: str | Callable | None = None,
-                 logvar_offset: float = 0.0, *, device=None,
+                 logvar_offset: float = 0.0, compute_dtype=None, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         device = resolve_device(device)
         self.feature_dimensionalities = tuple(int(d) for d in feature_dimensionalities)
+        self.compute_dtype = compute_dtype
         self.encoders = FeatureEncoderBank(
             self.feature_dimensionalities, encoder_hidden, embedding_dim,
             num_posenc_frequencies, activation=activation, logvar_offset=logvar_offset,
-            use_positional_encoding=use_positional_encoding, generator=generator)
+            use_positional_encoding=use_positional_encoding, generator=generator,
+            compute_dtype=compute_dtype)
         self.integration = MLP(len(self.feature_dimensionalities) * embedding_dim,
                                integration_hidden, output_dim, activation,
-                               output_activation, generator=generator)
+                               output_activation, generator=generator, dtype=compute_dtype,
+                               output_dtype=torch.float32)
         self.to(device)
 
     @property

@@ -5,6 +5,11 @@ of batched matmuls over stacked ``[F, in, out]`` weights, with no Python loop
 over features. Ragged features are zero-padded to a common width, which is
 exact: sin(0) = 0 keeps the positional encoding zero on padding, and
 first-layer weights that multiply zeros contribute nothing.
+
+``compute_dtype`` (e.g. 'bfloat16') runs the encoders' hidden layers in that
+type; their final layer is float32 on the hidden state, so the channel
+parameters (mus, logvars) that KL, sampling and the MI bounds read are
+float32 whatever the compute type.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ class GaussianEncoder(nn.Module):
                  embedding_dim: int = 32, num_posenc_frequencies: int = 4,
                  posenc_start_power: int = 1,
                  activation: str | Callable | None = "relu", logvar_offset: float = 0.0,
-                 generator: Generators = None, replicas: int | None = None):
+                 generator: Generators = None, replicas: int | None = None,
+                 compute_dtype=None):
         super().__init__()
         self.embedding_dim = embedding_dim
         self.logvar_offset = float(logvar_offset)
@@ -58,7 +64,8 @@ class GaussianEncoder(nn.Module):
                                                              posenc_start_power)),
             persistent=False)
         self.mlp = MLP(posenc_output_dim(in_dim, num_posenc_frequencies), hidden,
-                       2 * embedding_dim, activation, generator=generator, stack=replicas)
+                       2 * embedding_dim, activation, generator=generator, stack=replicas,
+                       dtype=compute_dtype, output_dtype=torch.float32)
 
     def forward(self, x: torch.Tensor):
         out = self.mlp(positional_encoding(x, self.frequencies))
@@ -80,7 +87,7 @@ class FeatureEncoderBank(nn.Module):
                  num_posenc_frequencies: int = 4,
                  activation: str | Callable | None = "relu", logvar_offset: float = 0.0,
                  use_positional_encoding: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, compute_dtype=None):
         super().__init__()
         self.feature_dimensionalities = tuple(int(d) for d in feature_dimensionalities)
         self.embedding_dim = embedding_dim
@@ -93,7 +100,7 @@ class FeatureEncoderBank(nn.Module):
         max_dim = max(self.feature_dimensionalities)
         self.mlp = MLP(posenc_output_dim(max_dim, nfreq), hidden, 2 * embedding_dim,
                        activation, stack=len(self.feature_dimensionalities),
-                       generator=generator)
+                       generator=generator, dtype=compute_dtype, output_dtype=torch.float32)
 
     def _split(self, out: torch.Tensor):
         d = self.embedding_dim

@@ -8,6 +8,12 @@ standard deviations, scaled by 1/sqrt(fan_in)), with a zero bias.
 A beta sweep's R replicas of a layer are such a stack of R: every parameter
 with a leading [R] axis (the layout of a JAX sweep's stacked tree), mapping
 [R, ..., in] to [R, ..., out] in one batched matmul.
+
+A layer's ``dtype`` is its computation type, as Flax's ``dtype``: the
+parameters stay float32, and the input, kernel and bias are cast to it (Flax's
+``promote_dtype``), multiplied, and the bias added in that type, so a
+bfloat16 layer rounds ``x @ kernel`` to bfloat16 before the bias add, as
+Flax does.
 """
 
 from __future__ import annotations
@@ -20,13 +26,43 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def resolve_dtype(dtype) -> torch.dtype | None:
+    """A computation dtype: ``None`` (no cast), a ``torch.dtype`` or its name
+    ('bfloat16', 'float32', ...).
+
+    A 16-bit type also sets ``torch.backends.cuda.matmul.
+    allow_bf16_reduced_precision_reduction`` and its float16 twin to False,
+    for the whole process: cuBLAS then reduces 16-bit products in float32,
+    as the JAX package does (``preferred_element_type``), and the port's
+    numerics do not depend on which GEMM cuBLAS picks.
+    """
+    if dtype is None:
+        return None
+    resolved = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype), None)
+    if not isinstance(resolved, torch.dtype) or not resolved.is_floating_point:
+        raise ValueError(f"Unknown compute dtype {dtype!r}")
+    if resolved.itemsize == 2:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
+    return resolved
+
+
 def _identity(x):
     return x
 
 
+# Flax multiplies by the slope in x's dtype: 0.1 rounds to 0.10009765625 in bfloat16
+_LEAKY_SLOPES = {dtype: float(torch.tensor(0.1, dtype=dtype))
+                 for dtype in (torch.float32, torch.bfloat16, torch.float16)}
+
+
+def _leaky_relu(x):
+    return F.leaky_relu(x, negative_slope=_LEAKY_SLOPES.get(x.dtype, 0.1))
+
+
 _ACTIVATIONS = {
     "relu": torch.relu,
-    "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.1),
+    "leaky_relu": _leaky_relu,
     "tanh": torch.tanh,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),   # flax's nn.gelu default
     "sigmoid": torch.sigmoid,
@@ -69,13 +105,14 @@ def lecun_normal_(tensor: torch.Tensor, fan_in: int,
 
 
 class Dense(nn.Module):
-    """``x @ kernel + bias`` with a Flax-layout kernel; with ``stack=F`` the
-    layer is F independent layers applied as one batched matmul to
-    [F, ..., in]."""
+    """``x @ kernel + bias`` with a Flax-layout kernel, computed in ``dtype``
+    (``None``: the input's); with ``stack=F`` the layer is F independent
+    layers applied as one batched matmul to [F, ..., in]."""
 
     def __init__(self, in_dim: int, out_dim: int, stack: int | None = None,
-                 generator: Generators = None):
+                 generator: Generators = None, dtype=None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         lead = () if stack is None else (stack,)
         self.kernel = nn.Parameter(torch.empty(lead + (in_dim, out_dim)))
         self.bias = nn.Parameter(torch.zeros(lead + (out_dim,)))
@@ -87,9 +124,10 @@ class Dense(nn.Module):
         kernel, bias = self.kernel, self.bias
         if member is not None:
             kernel, bias = kernel[member], bias[member]
+        if self.dtype is not None:
+            x, kernel, bias = x.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype)
         if kernel.dim() == 3:
-            flat = torch.baddbmm(bias[:, None, :], x.reshape(x.shape[0], -1, x.shape[-1]),
-                                 kernel)
+            flat = torch.bmm(x.reshape(x.shape[0], -1, x.shape[-1]), kernel) + bias[:, None, :]
             return flat.reshape(*x.shape[:-1], flat.shape[-1])
         return torch.matmul(x, kernel) + bias
 
@@ -107,16 +145,23 @@ class MLP(nn.Module):
         over a leading axis of the input (a sweep's R replicas).
       generator: CPU generator for the initialisation (one per member of
         the stack, or one for all).
+      dtype: computation dtype of the layers (parameters stay float32);
+        the activations run in it too.
+      output_dtype: the final layer's (``None``: ``dtype``); float32 where
+        the output feeds a loss, a KL or an MI bound.
     """
 
     def __init__(self, in_dim: int, hidden: Sequence[int], output_dim: int,
                  activation: str | Callable | None = "relu",
                  output_activation: str | Callable | None = None,
-                 stack: int | None = None, generator: Generators = None):
+                 stack: int | None = None, generator: Generators = None,
+                 dtype=None, output_dtype=None):
         super().__init__()
         widths = [in_dim, *hidden, output_dim]
+        dtypes = [dtype] * len(hidden) + [dtype if output_dtype is None else output_dtype]
         self.layers = nn.ModuleList(
-            Dense(a, b, stack, generator) for a, b in zip(widths[:-1], widths[1:]))
+            Dense(a, b, stack, generator, layer_dtype)
+            for a, b, layer_dtype in zip(widths[:-1], widths[1:], dtypes))
         self.activation = resolve_activation(activation)
         self.output_activation = resolve_activation(output_activation)
 

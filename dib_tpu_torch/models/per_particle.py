@@ -14,6 +14,11 @@ With ``replicas=R`` the model is R independent models (the members of a
 beta sweep): every parameter has a leading [R] axis under its usual name,
 every input and output a leading [R] axis, and ``carve`` takes members out
 as a model of their own.
+
+``compute_dtype='bfloat16'`` (the north star's setting) runs the encoder's
+hidden layers and the set transformer's matmuls and attention in bfloat16;
+the parameters, the channel parameters, KL, sampling, LayerNorms, residual
+sums and the logit stay float32.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ class PerParticleDIBModel(nn.Module):
 
     Defaults are the flagship: 50 particles x 12 features, encoder MLP
     (128, 128) -> 2 x 32 with logvar offset -3, no positional encoding, set
-    transformer of 6 blocks x 12 heads x key_dim 128 (1,293,505 parameters).
+    transformer of 6 blocks x 12 heads x key_dim 128 (1,293,505 parameters),
+    float32 compute unless ``compute_dtype`` is set.
     Parameters are initialised on the CPU from ``generator`` (Flax's
     schemes) and moved to ``device`` (``None`` means the GPU). With
     ``replicas=R`` and a sequence of R generators, replica r holds the
@@ -48,7 +54,7 @@ class PerParticleDIBModel(nn.Module):
                  num_blocks: int = 6, num_heads: int = 12, key_dim: int = 128,
                  ff_hidden: Sequence[int] = (128,), head_hidden: Sequence[int] = (256,),
                  output_dim: int = 1, activation: str | Callable | None = "relu",
-                 use_flash: bool | None = None, flash_min_seq: int = 1024,
+                 compute_dtype=None, use_flash: bool | None = None, flash_min_seq: int = 1024,
                  fuse_qkv: bool = False, remat: bool = False, *, device=None,
                  generator: Generators = None, replicas: int | None = None):
         # the architecture's arguments, from which ``carve`` builds a model
@@ -64,11 +70,11 @@ class PerParticleDIBModel(nn.Module):
         self.particle_encoder = GaussianEncoder(
             particle_feature_dim, encoder_hidden, embedding_dim, num_posenc_frequencies,
             activation=activation, logvar_offset=logvar_offset, generator=generator,
-            replicas=replicas)
+            replicas=replicas, compute_dtype=compute_dtype)
         self.aggregator = SetTransformer(
             num_blocks, num_heads, key_dim, embedding_dim, ff_hidden, head_hidden, output_dim,
             use_flash=use_flash, flash_min_seq=flash_min_seq, fuse_qkv=fuse_qkv, remat=remat,
-            device=device, generator=generator, replicas=replicas)
+            compute_dtype=compute_dtype, device=device, generator=generator, replicas=replicas)
         self.to(device)
 
     @property
@@ -108,9 +114,13 @@ class PerParticleDIBModel(nn.Module):
         return mus.transpose(-3, -2), logvars.transpose(-3, -2)
 
     def encode_feature(self, feature_index: int, x_feature: torch.Tensor):
-        """Channel parameters from raw per-particle data [B, F]; every slot
-        shares the encoder, so ``feature_index`` only names the slot."""
+        """Channel parameters from raw per-particle data [B, F]: [B, d] each,
+        or [R, B, d] with replicas, every replica encoding the same rows (a
+        [R, B, F] input gives each replica its own). Every slot shares the
+        encoder, so ``feature_index`` only names the slot."""
         del feature_index
+        if self.replicas is not None and x_feature.dim() == 2:
+            x_feature = x_feature.expand(self.replicas, *x_feature.shape)
         return self.particle_encoder(x_feature)
 
     def carve(self, members: int | Sequence[int]) -> "PerParticleDIBModel":

@@ -22,6 +22,11 @@ With ``replicas=R`` every module holds R independent copies of its
 parameters (a leading [R] axis on each, names unchanged) and takes inputs
 [R, B, S, model_dim]. Attention has no weights, so R is folded into its
 batch axis: one dense call or one flash launch serves every replica.
+
+``compute_dtype`` ('bfloat16') runs the projections, the attention core (the
+flash kernel's tensor-core path), the feed-forward MLP and the head's hidden
+layers in that type, as the JAX package's mixed-precision recipe does; the
+residual sums, LayerNorms, the mean pool and the logits stay float32.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dib_tpu_torch.device import resolve_device
-from dib_tpu_torch.models.mlp import MLP, Generators, lecun_normal_
+from dib_tpu_torch.models.mlp import MLP, Generators, lecun_normal_, resolve_dtype
 from dib_tpu_torch.ops.attention import dense_self_attention, flash_self_attention
 
 LAYER_NORM_EPS = 1e-6     # Flax's LayerNorm default
@@ -44,14 +49,16 @@ LAYER_NORM_EPS = 1e-6     # Flax's LayerNorm default
 class DenseGeneral(nn.Module):
     """Flax's ``DenseGeneral``: ``x @ kernel + bias`` over a kernel of shape
     ``[*in_shape, *out_shape]``, contracting the last ``len(in_shape)`` axes
-    of x. Lecun-normal with fan-in = prod(in_shape), zero bias. With
-    ``replicas=R``, R independent layers over x's leading axis."""
+    of x. Lecun-normal with fan-in = prod(in_shape), zero bias, computed in
+    ``dtype`` as ``Dense`` is. With ``replicas=R``, R independent layers
+    over x's leading axis."""
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
-                 generator: Generators = None, replicas: int | None = None):
+                 generator: Generators = None, replicas: int | None = None, dtype=None):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.replicas = replicas
+        self.dtype = resolve_dtype(dtype)
         fan_in = 1
         for n in self.in_shape:
             fan_in *= n
@@ -62,13 +69,16 @@ class DenseGeneral(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:x.dim() - len(self.in_shape)]
+        kernel, bias = self.kernel, self.bias
+        if self.dtype is not None:
+            x, kernel, bias = x.to(self.dtype), kernel.to(self.dtype), bias.to(self.dtype)
         if self.replicas is not None:
             r = self.replicas
             flat = x.reshape(r, -1, math.prod(self.in_shape)) @ \
-                self.kernel.reshape(r, -1, math.prod(self.out_shape))
-            return (flat + self.bias.reshape(r, 1, -1)).reshape(*lead, *self.out_shape)
-        flat = x.reshape(*lead, -1) @ self.kernel.reshape(-1, self.bias.numel())
-        return (flat + self.bias.reshape(-1)).reshape(*lead, *self.out_shape)
+                kernel.reshape(r, -1, math.prod(self.out_shape))
+            return (flat + bias.reshape(r, 1, -1)).reshape(*lead, *self.out_shape)
+        flat = x.reshape(*lead, -1) @ kernel.reshape(-1, bias.numel())
+        return (flat + bias.reshape(-1)).reshape(*lead, *self.out_shape)
 
 
 class ReplicaLayerNorm(nn.Module):
@@ -94,12 +104,13 @@ def layer_norm(dim: int, replicas: int | None = None) -> nn.Module:
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """QKV/out projections around the dense or the flash attention core."""
+    """QKV/out projections around the dense or the flash attention core, in
+    ``dtype``; the core takes q, k, v of that type."""
 
     def __init__(self, in_dim: int, num_heads: int, qkv_features: int, out_features: int,
                  use_flash: bool | None = None, flash_min_seq: int = 1024,
                  fuse_qkv: bool = False, generator: Generators = None,
-                 replicas: int | None = None):
+                 replicas: int | None = None, dtype=None):
         super().__init__()
         head_dim = qkv_features // num_heads
         self.use_flash = use_flash
@@ -107,12 +118,14 @@ class MultiHeadSelfAttention(nn.Module):
         self.fuse_qkv = fuse_qkv
         self.replicas = replicas
         if fuse_qkv:
-            self.qkv = DenseGeneral((in_dim,), (3, num_heads, head_dim), generator, replicas)
+            self.qkv = DenseGeneral((in_dim,), (3, num_heads, head_dim), generator, replicas,
+                                    dtype)
         else:
-            self.query = DenseGeneral((in_dim,), (num_heads, head_dim), generator, replicas)
-            self.key = DenseGeneral((in_dim,), (num_heads, head_dim), generator, replicas)
-            self.value = DenseGeneral((in_dim,), (num_heads, head_dim), generator, replicas)
-        self.out = DenseGeneral((num_heads, head_dim), (out_features,), generator, replicas)
+            self.query = DenseGeneral((in_dim,), (num_heads, head_dim), generator, replicas, dtype)
+            self.key = DenseGeneral((in_dim,), (num_heads, head_dim), generator, replicas, dtype)
+            self.value = DenseGeneral((in_dim,), (num_heads, head_dim), generator, replicas, dtype)
+        self.out = DenseGeneral((num_heads, head_dim), (out_features,), generator, replicas,
+                                dtype)
 
     def flash(self, x: torch.Tensor) -> bool:
         """The dispatch rule: the flag if set, else large sets on the GPU."""
@@ -136,25 +149,28 @@ class MultiHeadSelfAttention(nn.Module):
 
 
 class SetAttentionBlock(nn.Module):
-    """Post-LN self-attention block: x + MHA(x) -> LN -> (+FF) -> LN."""
+    """Post-LN self-attention block: x + MHA(x) -> LN -> (+FF) -> LN, the
+    attention and the feed-forward MLP in ``compute_dtype``, the residual
+    sums and LayerNorms in x's type (float32)."""
 
     def __init__(self, num_heads: int = 12, key_dim: int = 128, ff_hidden: Sequence[int] = (128,),
                  model_dim: int = 32, ff_activation: str | Callable | None = "relu",
                  use_flash: bool | None = None, flash_min_seq: int = 1024,
                  fuse_qkv: bool = False, generator: Generators = None,
-                 replicas: int | None = None):
+                 replicas: int | None = None, compute_dtype=None):
         super().__init__()
         self.attention = MultiHeadSelfAttention(
             model_dim, num_heads, num_heads * key_dim, model_dim, use_flash, flash_min_seq,
-            fuse_qkv, generator, replicas)
+            fuse_qkv, generator, replicas, compute_dtype)
         self.norm0 = layer_norm(model_dim, replicas)
         self.ff = MLP(model_dim, ff_hidden, model_dim, ff_activation,
-                      output_activation=ff_activation, generator=generator, stack=replicas)
+                      output_activation=ff_activation, generator=generator, stack=replicas,
+                      dtype=compute_dtype)
         self.norm1 = layer_norm(model_dim, replicas)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.norm0(x + self.attention(x))
-        return self.norm1(h + self.ff(h))
+        h = self.norm0(x + self.attention(x).to(x.dtype))
+        return self.norm1(h + self.ff(h).to(h.dtype))
 
 
 class SetTransformer(nn.Module):
@@ -174,17 +190,20 @@ class SetTransformer(nn.Module):
                  ff_activation: str | Callable | None = "relu",
                  head_activation: str | Callable | None = "leaky_relu",
                  use_flash: bool | None = None, flash_min_seq: int = 1024,
-                 fuse_qkv: bool = False, remat: bool = False, *, device=None,
-                 generator: Generators = None, replicas: int | None = None):
+                 fuse_qkv: bool = False, remat: bool = False, compute_dtype=None, *,
+                 device=None, generator: Generators = None, replicas: int | None = None):
         super().__init__()
         device = resolve_device(device)
         self.remat = remat
         self.blocks = nn.ModuleList(
             SetAttentionBlock(num_heads, key_dim, ff_hidden, model_dim, ff_activation,
-                              use_flash, flash_min_seq, fuse_qkv, generator, replicas)
+                              use_flash, flash_min_seq, fuse_qkv, generator, replicas,
+                              compute_dtype)
             for _ in range(num_blocks))
+        # hidden layers in the compute dtype, the logits float32
         self.head = MLP(model_dim, head_hidden, output_dim, head_activation,
-                        generator=generator, stack=replicas)
+                        generator=generator, stack=replicas, dtype=compute_dtype,
+                        output_dtype=torch.float32)
         self.to(device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

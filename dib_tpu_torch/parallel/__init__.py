@@ -7,4 +7,4 @@ from dib_tpu_torch.parallel.sweep import (
     member_seed,
     sweep_records,
 )
-from dib_tpu_torch.parallel.sweep_hooks import SweepInfoPerFeatureHook
+from dib_tpu_torch.parallel.sweep_hooks import SweepCompressionHook, SweepInfoPerFeatureHook

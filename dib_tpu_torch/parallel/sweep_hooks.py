@@ -1,13 +1,16 @@
 """Sweep-native instrumentation: every replica measured at once
-(counterpart of ``dib_tpu/parallel/sweep_hooks.py::SweepInfoPerFeatureHook``).
+(counterpart of ``dib_tpu/parallel/sweep_hooks.py``).
 
 ``SweepInfoPerFeatureHook`` bounds the MI of every channel of every replica
 of a sweep: per evaluation batch, one stacked encode gives [R, P, B, d]
 channel parameters, and all R x P channels go to ``mi_row_stats`` as the
 groups of one launch (split only past the kernel's group limit). Records
 keep the JAX hook's shapes and units ([R, F, 2] nats), so per-replica
-plotting is unchanged. Not ported yet: ``overlap=`` and ``telemetry=``, and
-``SweepCompressionHook`` (with ``CompressionMatrixHook``).
+plotting is unchanged. ``SweepCompressionHook`` pulls every replica's
+compression scheme with one stacked encode per (call, feature) and saves it
+as ``.npz``; ``render()`` draws the PNGs the serial
+``CompressionMatrixHook`` would have drawn, after the timed run. Not ported
+yet: ``overlap=`` and ``telemetry=``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from dib_tpu_torch.ops.density import MAX_GROUPS
 from dib_tpu_torch.ops.gaussian import reparameterize
 from dib_tpu_torch.ops.info_bounds import mi_sandwich_from_params
+from dib_tpu_torch.ops.schedules import log_annealed_beta
 
 
 def sweep_features_bounds(model, rows: torch.Tensor, batch_size: int, num_batches: int,
@@ -134,3 +138,104 @@ class _ReplicaView:
     def __init__(self, epochs: np.ndarray, bounds_bits: np.ndarray):
         self.epochs = epochs
         self.bounds_bits = bounds_bits
+
+
+class SweepCompressionHook:
+    """Compression schemes of every replica, rendering deferred off the clock.
+
+    Each call encodes the validation rows of each feature in ``features``
+    once through the stacked model ([R, N, d] channel parameters) and writes
+    ``{outdir}/schemes/scheme_epoch{E}_feature{F}.npz`` holding ``mus``,
+    ``logvars``, the replicas' ``betas`` at that epoch, ``epoch`` and
+    ``feature``; ``saved`` lists them in call order. A call at or before the
+    last saved epoch (a resumed run measuring again) drops the later
+    entries, whose files it overwrites; a call from another sweep starts a
+    new record. ``resume=True`` rebuilds ``saved`` from the files on disk,
+    epochs ascending and features in this hook's order, the order the calls
+    that wrote them ran in.
+
+    ``render(bundle)`` draws every saved scheme into
+    ``{outdir}/replica{r}/compression/feature_{f}_log10beta_{beta:.3f}.png``,
+    replicas outside and records inside, each replica with its own
+    ``default_rng(seed)``: the rows the serial ``CompressionMatrixHook(seed=
+    seed)`` of that replica would display.
+    """
+
+    def __init__(self, outdir: str, features=(0,), max_number_to_display: int = 128,
+                 seed: int = 0, resume: bool = False):
+        self.outdir = outdir
+        self.features = tuple(features)
+        self.max_number_to_display = max_number_to_display
+        self.seed = seed
+        self.saved: list[dict] = []
+        self._feature_rows = {}
+        self._cache_for = None     # the sweep whose rows are uploaded and whose record this is
+        schemes = os.path.join(outdir, "schemes")
+        os.makedirs(schemes, exist_ok=True)
+        if resume:
+            found = {}
+            for name in os.listdir(schemes):
+                match = re.fullmatch(r"scheme_epoch(\d+)_feature(\d+)\.npz", name)
+                if match:
+                    found[(int(match.group(1)), int(match.group(2)))] = name
+            for epoch in sorted({e for e, _ in found}):
+                for f in self.features:
+                    if (epoch, f) in found:
+                        self.saved.append({"path": os.path.join(schemes, found[(epoch, f)]),
+                                           "epoch": epoch, "feature": f})
+
+    def __call__(self, sweep, states, epoch: int):
+        model = states.params["model"]
+        if getattr(model, "replicas", None) is None:
+            raise ValueError(
+                f"SweepCompressionHook needs a model with a replica axis; got "
+                f"{type(model).__name__} without one (DistributedIBModel's replica axis is "
+                "not ported yet); use CompressionMatrixHook on a serial trainer")
+        if sweep is not self._cache_for:
+            self._feature_rows.clear()
+            if self._cache_for is not None:       # a new run: keep render() to one sweep
+                self.saved.clear()
+            self._cache_for = sweep
+        self.saved = [s for s in self.saved if s["epoch"] < epoch]
+        cfg = sweep.config
+        betas = np.array([
+            float(log_annealed_beta(epoch, float(start), float(end), cfg.num_annealing_epochs,
+                                    cfg.num_pretraining_epochs))
+            for start, end in zip(sweep.beta_starts_host, sweep.beta_ends_host)])
+        for f in self.features:
+            if f not in self._feature_rows:
+                self._feature_rows[f] = torch.as_tensor(sweep.feature_data(f),
+                                                        dtype=torch.float32, device=sweep.device)
+            mus, logvars = sweep.encode_feature(states, f, self._feature_rows[f])
+            path = os.path.join(self.outdir, "schemes", f"scheme_epoch{epoch}_feature{f}.npz")
+            np.savez(path, mus=mus.cpu().numpy(), logvars=logvars.cpu().numpy(), betas=betas,
+                     epoch=epoch, feature=f)
+            self.saved.append({"path": path, "epoch": epoch, "feature": f})
+
+    def render(self, bundle) -> list[str]:
+        """Draw every saved scheme; returns the PNG paths."""
+        from dib_tpu_torch.viz.compression import save_compression_matrix
+
+        dims = list(bundle.feature_dimensionalities)
+        raw_all = bundle.x_valid_raw if bundle.x_valid_raw is not None else bundle.x_valid
+        paths = []
+        replicas = 0
+        if self.saved:
+            with np.load(self.saved[0]["path"]) as data:
+                replicas = int(data["mus"].shape[0])
+        for r in range(replicas):
+            rng = np.random.default_rng(self.seed)
+            outdir = os.path.join(self.outdir, f"replica{r}", "compression")
+            os.makedirs(outdir, exist_ok=True)
+            for record in self.saved:
+                with np.load(record["path"]) as data:
+                    f = int(data["feature"])
+                    mus, logvars, beta = data["mus"][r], data["logvars"][r], data["betas"][r]
+                start = int(np.sum(dims[:f]))
+                fname = os.path.join(outdir, f"feature_{f}_log10beta_{np.log10(beta):.3f}.png")
+                save_compression_matrix(
+                    mus, logvars, raw_all[:, start:start + dims[f]], fname,
+                    feature_label=bundle.feature_labels[f] if bundle.feature_labels else None,
+                    max_number_to_display=self.max_number_to_display, rng=rng)
+                paths.append(fname)
+        return paths

@@ -2,16 +2,20 @@
 
 ``all_features_bounds`` is the paper's per-feature information query on a
 fixed set of weights; ``InfoPerFeatureHook`` runs it between training
-chunks and keeps the trajectory, and ``Every`` gives a hook its own cadence.
+chunks and keeps the trajectory, ``CompressionMatrixHook`` renders each
+channel's compression scheme, and ``Every`` gives a hook its own cadence.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from dib_tpu_torch.ops.gaussian import reparameterize
 from dib_tpu_torch.ops.info_bounds import mi_sandwich_from_params
+from dib_tpu_torch.ops.schedules import log_annealed_beta
 
 
 def all_features_bounds(model, rows, batch_size: int = 1024, num_batches: int = 8,
@@ -109,3 +113,42 @@ class InfoPerFeatureHook:
     @property
     def epochs(self) -> np.ndarray:
         return np.asarray([r["epoch"] for r in self.records])
+
+
+class CompressionMatrixHook:
+    """Saves each channel's compression-scheme matrix at each invocation, as
+    ``{outdir}/feature_{f}_log10beta_{log10 beta:.3f}.png``, beta from the
+    trainer's schedule at that epoch.
+
+    One ``default_rng(seed)`` picks the displayed rows and advances once per
+    (call, feature) in call order, as the JAX hook's does. ``features=None``
+    draws every channel; for an encoder shared by every slot (the
+    per-particle model) pass ``(0,)``, the other slots' schemes being the
+    same. Renders with matplotlib (imported at the first call).
+    """
+
+    def __init__(self, outdir: str, max_number_to_display: int = 128, seed: int = 0,
+                 features=None):
+        self.outdir = outdir
+        self.max_number_to_display = max_number_to_display
+        self.rng = np.random.default_rng(seed)
+        self.features = features
+        os.makedirs(outdir, exist_ok=True)
+
+    def __call__(self, trainer, state, epoch: int):
+        from dib_tpu_torch.viz.compression import save_compression_matrix
+
+        cfg = trainer.config
+        beta = float(log_annealed_beta(epoch, cfg.beta_start, cfg.beta_end,
+                                       cfg.num_annealing_epochs, cfg.num_pretraining_epochs))
+        raw_all = trainer.bundle.x_valid_raw
+        feature_ids = range(trainer.num_features) if self.features is None else self.features
+        for f in feature_ids:
+            x_f = trainer.feature_data(f)
+            raw_f = trainer.feature_data(f, arr=raw_all) if raw_all is not None else x_f
+            mus, logvars = trainer.encode_feature(state, f, x_f)
+            fname = os.path.join(self.outdir, f"feature_{f}_log10beta_{np.log10(beta):.3f}.png")
+            save_compression_matrix(mus.cpu().numpy(), logvars.cpu().numpy(), raw_f, fname,
+                                    feature_label=trainer.bundle.feature_labels[f],
+                                    max_number_to_display=self.max_number_to_display,
+                                    rng=self.rng)

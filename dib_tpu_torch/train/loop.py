@@ -26,6 +26,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -323,3 +324,21 @@ class DIBTrainer:
             for hook in hooks:
                 hook(self, state, state.epoch)
         return state, self._records(history)
+
+    # ------------------------------------------------------------ inspection
+    def encode_feature(self, state: TrainState, feature_index: int, x_feature):
+        """One channel's (mus, logvars) on raw single-feature rows (numpy or
+        a tensor), from the state's model, without gradients: [N, d] each
+        ([R, N, d] for a model with replicas, every replica on the rows)."""
+        x = torch.as_tensor(x_feature, dtype=torch.float32, device=self.device)
+        with torch.inference_mode():
+            return state.params["model"].encode_feature(feature_index, x)
+
+    def feature_data(self, feature_index: int, split: str = "valid",
+                     arr: np.ndarray | None = None) -> np.ndarray:
+        """One feature's columns, from a split or from ``arr`` (e.g. raw values)."""
+        dims = list(self.bundle.feature_dimensionalities)
+        start = int(np.sum(dims[:feature_index]))
+        if arr is None:
+            arr = self.bundle.x_valid if split == "valid" else self.bundle.x_train
+        return arr[:, start:start + dims[feature_index]]

@@ -18,3 +18,11 @@ def pyplot(caller: str):
     import matplotlib.pyplot as plt
 
     return plt
+
+
+from dib_tpu_torch.viz.compression import (  # noqa: E402  (they import pyplot from here)
+    compression_matrix,
+    save_compression_matrix,
+)
+from dib_tpu_torch.viz.info_plane import save_distributed_info_plane  # noqa: E402
+from dib_tpu_torch.viz.probe_maps import density_mask, save_info_maps  # noqa: E402

@@ -78,8 +78,7 @@ def test_flash_gradients_match_jax():
         _close(got, w, GRAD_TOL)
     # the blocked recompute with a ragged last query block gives the same
     out = flash_self_attention_reference(*map(torch.from_numpy, (q, k, v)))
-    blocked = flash_attention_backward(*map(torch.from_numpy, (q, k, v)), out, 2 * out,
-                                       block_q=16)
+    blocked = flash_attention_backward(*map(torch.from_numpy, (q, k, v)), 2 * out, block_q=16)
     for got, w in zip(blocked, want):
         _close(got, w, GRAD_TOL)
 

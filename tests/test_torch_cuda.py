@@ -287,3 +287,60 @@ def test_flash_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="unit stride"):
         attention.flash_self_attention(strided, k, v)
     assert attention.flash_attention_launches == before
+
+
+@pytest.mark.cuda
+def test_flash_bf16_at_the_sweep_step_shape_on_card(cuda_device):
+    """The north star's bf16 training shape, 8 replicas x 32 sets of 50
+    particles (B = 256), 12 heads of 128: the tensor-core kernel's output and
+    the blocked-recompute gradients (bfloat16, the input type) against
+    autograd through the plain version."""
+    q, k, v = (t.requires_grad_() for t in _qkv(cuda_device, 8 * 32, 50, 12, 128, torch.bfloat16))
+    before = attention.flash_attention_bf16_launches
+    out = attention.flash_self_attention(q, k, v)
+    assert attention.flash_attention_bf16_launches == before + 1
+    want = attention.flash_self_attention_reference(q, k, v)
+    torch.testing.assert_close(out, want, rtol=BF16_TOL, atol=BF16_TOL)
+    out.square().sum().backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    want.square().sum().backward()
+    for g, t in zip(got, (q, k, v)):
+        assert g.dtype == torch.bfloat16
+        torch.testing.assert_close(g, t.grad, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stack", [None, 8])
+def test_bf16_dense_stack_on_card_matches_cpu(cuda_device, stack):
+    """A bfloat16 ``MLP`` (a sweep's stack of 8 too) on the card against the
+    same layers on the CPU: cuBLAS reduces the bf16 products in float32 (the
+    port sets ``allow_bf16_reduced_precision_reduction`` off when it builds a
+    bf16 layer) and rounds each product and each bias add to bfloat16, as
+    the CPU path does; accumulation order may move a value by an ulp."""
+    from dib_tpu_torch.models import MLP
+
+    mlp = MLP(32, (128, 128), 64, "relu", stack=stack, dtype="bfloat16",
+              output_dtype="float32", generator=torch.Generator().manual_seed(3))
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is False
+    lead = () if stack is None else (stack,)
+    x = torch.randn(lead + (1600, 32), generator=torch.Generator().manual_seed(4))
+    want = mlp(x)
+    got = mlp.to(cuda_device)(x.to(cuda_device))
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)])
+def test_flash_kernel_holds_scores_of_1e8_on_card(cuda_device, dtype, tol):
+    """q and k scaled by 1e4 (scaled scores near 1e8, as the untrained
+    flagship's block 0 gives them): each row is one-hot, the max key's p is
+    exactly 1, and the output is that key's v. An exponent that folds the
+    max into an FMA rounds by units there (p off by 2^4)."""
+    q, k, v = _qkv(cuda_device, 4, 50, 12, 128, dtype, 1e4)
+    got = attention.flash_self_attention(q, k, v)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, attention.flash_self_attention_reference(q, k, v),
+                               rtol=tol, atol=tol)
