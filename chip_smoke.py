@@ -70,14 +70,37 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      the sweep's MI hook beside 8 serial hooks, the validation pass's time
      and peak memory in both types, one compression hook call; profiler
      breakdowns
- 12. one JSON line listing each ported kernel
- 13. the last line: ``{"ok": true, "device": {...}}``
+ 12. main path 7, the CLI and durable training, at the CLI's defaults
+     (boolean_circuit, the 403,585-parameter ``DistributedIBModel``, batch
+     128, 8 steps per epoch, the MI hook at 1024 x 8; cut to 4 + 8 epochs,
+     MI bounds and checkpoints every 4): (a) ``train`` in process (8
+     ``mi_row_stats`` launches per hook call), then ``python -m
+     dib_tpu_torch train`` stopped by SIGTERM in its first chunk (exit 75,
+     one checkpoint) and launched again (resumed from epoch 4): its
+     history and every leaf of its final checkpoint equal the in-process
+     run's bit for bit; (b) the same for the README's sweep command (8
+     replicas), every replica finite, replicas 0 and 7 held to serial runs
+     of their member seeds beside a one-replica witness (phase 9's
+     tolerances over the first two epochs; over the 96 steps, where the
+     β = 1 member amplifies rounding, rows to 2e-2 and leaves to 5e-2 of
+     their norm); (c) ``run_amorphous_sweep
+     (checkpoint_dir=)`` at phase 9's configuration, a hook raising at
+     epoch 4 after the checkpoint at 2, the relaunch equal to phase 9's run
+     bit for bit (records, weights, the MI bounds measured again); (d)
+     ``InferenceEngine.from_checkpoint`` on (a)'s directory against the
+     trained weights; (e) one byte flipped in the newest step: quarantined,
+     the step before restored; (f) checkpoint save and restore times (the
+     north star's stacked state and (a)'s), each CLI run's wall time and
+     the boolean step, serial and 8 replicas
+ 13. one JSON line listing each ported kernel
+ 14. the last line: ``{"ok": true, "device": {...}}``
 
 Without a CUDA device it exits nonzero before printing any result.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -88,6 +111,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -747,7 +771,6 @@ def capture_attention(model):
     a copy of the attention module as it was (weights before the optimizer
     step), the module's input and the gradient of its output. Returns the
     list it fills and the hook handles."""
-    import copy
 
     records, handles = [], []
 
@@ -1097,11 +1120,11 @@ def drive_amorphous():
 # --------------------------------------------------------------------------
 # phase 9: main path 5, the beta sweep
 
-def run_sweep(config, hooks, model_overrides):
+def run_sweep(config, hooks, model_overrides, **kwargs):
     """``run_amorphous_sweep`` at full width with phase 9's cuts, the launch
     counts set to 0 just before and read just after, and the group axis of
-    every ``mi_row_stats`` call recorded. Returns (result, groups, launches,
-    peak device memory in GB)."""
+    every ``mi_row_stats`` call recorded; ``kwargs`` go to ``run_amorphous_sweep``.
+    Returns (result, groups, launches, peak device memory in GB)."""
     from dib_tpu_torch.ops import attention, density, info_bounds
     from dib_tpu_torch.workloads import run_amorphous_sweep
 
@@ -1122,7 +1145,7 @@ def run_sweep(config, hooks, model_overrides):
         result = run_amorphous_sweep(SEED, config, steps_per_epoch=SWEEP_STEPS_PER_EPOCH,
                                      chunk_epochs=SWEEP_CHUNK, hooks=hooks, render=False,
                                      model_overrides=model_overrides,
-                                     num_synthetic_neighborhoods=SWEEP_NEIGHBORHOODS)
+                                     num_synthetic_neighborhoods=SWEEP_NEIGHBORHOODS, **kwargs)
     finally:
         info_bounds.mi_row_stats = plain_call
     torch.cuda.synchronize()
@@ -1279,12 +1302,6 @@ def serial_sweep_member(config, bundle, train_config, r, beta_end, use_flash):
     return model.state_dict(), history
 
 
-def leaf_errors(got: dict, want: dict) -> dict:
-    """Each leaf's difference relative to its norm in ``want``."""
-    return {name: ((got[name] - w).norm() / w.norm().clamp_min(1e-30)).item()
-            for name, w in want.items()}
-
-
 def hold_sweep_replicas(result, bundle, config):
     """Replicas ``SWEEP_HELD`` against a serial DIBTrainer from the same
     initial weights, endpoint and seed, over the same steps (flash
@@ -1308,6 +1325,8 @@ def hold_sweep_replicas(result, bundle, config):
     last-bit difference flips a prediction: they are held to at most
     SWEEP_FLIPS flipped predictions per epoch (the loss rows beside them
     stay held to SWEEP_TOL); the witness's flips are printed beside them."""
+    from dib_tpu_torch.scripts.sweep_drift import leaf_errors
+
     train_config = config.train_config(SWEEP_STEPS_PER_EPOCH)
     steps = SWEEP_EPOCHS * SWEEP_STEPS_PER_EPOCH
     summed_lr = config.learning_rate * sum(min(u / config.warmup_steps, 1.0)
@@ -1470,7 +1489,6 @@ def hold_bf16_card_vs_cpu(flagship):
     same rounding points). Then the card step again
     with cuBLAS allowed to reduce bf16 products in reduced precision, against
     the port's setting (float32 reductions)."""
-    import copy
 
     from dib_tpu_torch.train import DIBTrainer
     from dib_tpu_torch.workloads import build_model
@@ -1530,6 +1548,498 @@ def hold_bf16_card_vs_cpu(flagship):
         fail(f"bf16 flagship step, card vs CPU: {step:.3e} of the norm, beyond {BF16_SHARE} x "
              f"the CPU's own bf16 vs f32 spread {spread:.3e}: other rounding points")
     return dict(step=step, spread=spread, flag_logits=flag_logits, flag_step=flag_step)
+
+
+# --------------------------------------------------------------------------
+# phase 12: main path 7, the CLI and durable training
+
+CLI_DEVICE = "cuda"
+CLI_COMMAND = [sys.executable, "-m", "dib_tpu_torch"]     # run from the checkout's root
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the CLI at its defaults (boolean_circuit, the 403,585-parameter model, batch
+# 128, 8 steps per epoch, the MI hook at 1024 x 8); cut: 4 + 8 epochs (from
+# 1000 + 10000), MI bounds and checkpoints every 4 epochs (from 500)
+CLI_CUTS = ["--number_pretraining_epochs", "4", "--number_annealing_epochs", "8",
+            "--info_bounds_frequency", "4", "--checkpoint_frequency", "4"]
+CLI_CADENCE, CLI_EPOCHS, CLI_PARAMS = 4, 12, 403_585
+CLI_SWEEP = ["--sweep_beta_ends", "0.03", "0.1", "0.3", "1.0", "--sweep_repeats", "2"]
+CLI_TIMEOUT = 600
+# the CLI sweep's replicas 0 and 7 against serial runs of their member seeds,
+# by phase 9's rules over all 96 steps, in float64: in float32 the trajectory
+# amplifies rounding (one ulp of one weight of a serial run moves it by up to
+# ~1e-3 in 96 steps; PERF.md), and the batched GEMMs of a stack of 8 round
+# otherwise than the serial ones. The float32 run is held bit for bit to
+# stacks of eight copies of each member: nothing couples the replicas.
+# dib_tpu_torch/scripts/sweep_drift.py runs the full set of these comparisons.
+
+
+def cli_argv(outdir, ckpt, *extra):
+    return ["train", "--dataset", "boolean_circuit", "--artifact_outdir", outdir,
+            "--checkpoint_dir", ckpt, *CLI_CUTS, *extra]
+
+
+def cli_in_process(argv):
+    """``train`` in this process, the launch counts set to 0 just before
+    and read just after: (summary, launches, wall s)."""
+    from dib_tpu_torch import cli
+    from dib_tpu_torch.ops import attention, density
+
+    density.mi_row_stats_launches = 0
+    attention.flash_attention_launches = 0
+    attention.flash_attention_bf16_launches = 0
+    density.log_density_mat_launches = 0
+    t0 = time.perf_counter()
+    summary = cli.run(cli.build_parser().parse_args(argv), device=CLI_DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return summary, {"mi_row_stats": density.mi_row_stats_launches,
+                     "flash_attention": attention.flash_attention_launches,
+                     "flash_attention_bf16": attention.flash_attention_bf16_launches,
+                     "log_density_mat": density.log_density_mat_launches}, wall
+
+
+def cli_subprocess(argv, stop_after=None):
+    """``python -m dib_tpu_torch train`` in a process of its own; with
+    ``stop_after`` (a checkpoint step's directory), SIGTERM is sent as soon
+    as that directory exists, so it lands in the chunk after it. Returns
+    (exit code, stdout, stderr, wall s)."""
+    import signal
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as out, tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen([*CLI_COMMAND, *argv], cwd=ROOT, env=env, text=True,
+                                stdout=out, stderr=err)
+        try:
+            if stop_after is not None:
+                while proc.poll() is None and not os.path.isdir(stop_after):
+                    time.sleep(0.001)
+                proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=CLI_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        out.seek(0)
+        err.seek(0)
+        return proc.returncode, out.read(), err.read(), time.perf_counter() - t0
+
+
+def checkpoint_leaves(ckpt, step):
+    with np.load(os.path.join(ckpt, str(step), "leaves.npz"), allow_pickle=False) as data:
+        return {name: data[name] for name in data.files}
+
+
+def same_files(label, got_dir, want_dir, names):
+    """Every array of each .npz in ``names`` equal bit for bit."""
+    for name in names:
+        with np.load(os.path.join(got_dir, name)) as got, \
+                np.load(os.path.join(want_dir, name)) as want:
+            if got.files != want.files:
+                fail(f"{label}: {name} holds {got.files}, expected {want.files}")
+            for key in want.files:
+                if not np.array_equal(got[key], want[key]):
+                    fail(f"{label}: {name}[{key}] differs from the uninterrupted run's")
+
+
+def same_leaves(label, got, want):
+    """Every leaf of two checkpoint steps equal bit for bit; returns the
+    number of leaves and of weight leaves."""
+    if got.keys() != want.keys():
+        fail(f"{label}: the final checkpoints hold other leaves")
+    for name, value in want.items():
+        if not np.array_equal(got[name], value):
+            fail(f"{label}: leaf {name} of the final checkpoint differs from the "
+                 f"uninterrupted run's")
+    return len(want), sum(name.startswith("params/") for name in want)
+
+
+def cli_resume(label, tmp, extra, history_files, hook_calls):
+    """The CLI run in process, then the same command as a process of its own
+    sent SIGTERM once its first checkpoint (epoch 4) exists: it exits 75
+    at the next chunk boundary with a chunk-aligned checkpoint there, and
+    launched again resumes from it; its history and every leaf of its final
+    checkpoint equal the in-process run's bit for bit (the serial MI hook
+    draws from a running generator, as the JAX hook does, so its bounds
+    after the resume are other draws)."""
+    whole, run = os.path.join(tmp, f"{label}_whole"), os.path.join(tmp, f"{label}_run")
+    whole_ckpt, run_ckpt = whole + "_ckpt", run + "_ckpt"
+    summary, launches, in_process_s = cli_in_process(cli_argv(whole, whole_ckpt, *extra))
+    print(f"main path launches (CLI {label}, {CLI_EPOCHS} epochs, {hook_calls} MI hook calls): "
+          f"{json.dumps(launches)}")
+    want_launches = 8 * hook_calls
+    if launches["mi_row_stats"] != want_launches or launches["flash_attention"] or \
+            launches["flash_attention_bf16"]:
+        fail(f"CLI {label}: launches {launches}, expected {want_launches} mi_row_stats "
+             f"(8 per MI hook call) and no attention")
+    code, out, err, stopped_s = cli_subprocess(cli_argv(run, run_ckpt, *extra),
+                                               stop_after=os.path.join(run_ckpt, str(CLI_CADENCE)))
+    with open(os.path.join(run, "run_summary.json")) as f:
+        stopped = json.load(f)
+    at = stopped.get("preempted_at_epoch")
+    steps = sorted(int(s) for s in os.listdir(run_ckpt) if s.isdigit())
+    if code != 75 or stopped.get("status") != "preempted" or at not in range(
+            CLI_CADENCE, CLI_EPOCHS, CLI_CADENCE) or steps != list(range(CLI_CADENCE, at + 1,
+                                                                         CLI_CADENCE)):
+        fail(f"CLI {label}: SIGTERM after the checkpoint at epoch {CLI_CADENCE} gave exit "
+             f"{code}, summary {stopped}, steps {steps}; expected 75, preempted at a chunk "
+             f"boundary before epoch {CLI_EPOCHS} with a checkpoint there\n{err[-3000:]}")
+    code, out, err, resumed_s = cli_subprocess(cli_argv(run, run_ckpt, *extra))
+    resumed = json.loads(out.strip().splitlines()[-1]) if code == 0 else {}
+    if code != 0 or resumed.get("resumed_from_epoch") != at:
+        fail(f"CLI {label}: the relaunch gave exit {code}, resumed_from_epoch "
+             f"{resumed.get('resumed_from_epoch')}, expected 0 and {at}\n{err[-3000:]}")
+    same_files(f"CLI {label}", run, whole, history_files)
+    leaves, weights = same_leaves(f"CLI {label}", checkpoint_leaves(run_ckpt, CLI_EPOCHS),
+                                  checkpoint_leaves(whole_ckpt, CLI_EPOCHS))
+    print(f"CLI {label}: SIGTERM once the checkpoint at epoch {CLI_CADENCE} existed -> exit 75 "
+          f"at epoch {at} with checkpoints at {steps}; the relaunch resumed from epoch "
+          f"{resumed['resumed_from_epoch']}; {', '.join(history_files)} and all {leaves} leaves "
+          f"of the final checkpoint ({weights} weight leaves) equal the uninterrupted run's bit "
+          f"for bit; not rendered (no matplotlib): {len(resumed.get('not_rendered', []))} "
+          f"plot(s)")
+    return dict(summary=summary, launches=launches, whole=whole, whole_ckpt=whole_ckpt,
+                resumed_from=at, wall_s={"in process": in_process_s, "stopped by SIGTERM": stopped_s,
+                        "relaunched": resumed_s})
+
+
+def hold_cli_replicas(tmp, sweep):
+    """Replicas ``SWEEP_HELD`` of the CLI's sweep.
+
+    (1) The CLI's float32 run, bit for bit: each held replica's history and
+    final weights equal the same slot of a stack of eight copies of that
+    member (so no other member moves it). (2) Phase 9's rules over the
+    whole run, in float64: the sweep of eight (the CLI's members, endpoints and draws)
+    against serial runs of the held members' seeds, every history row to
+    SWEEP_TOL relative, every kernel leaf to SWEEP_TOL of its norm, every
+    bias leaf to SWEEP_BIAS_TOL, at most SWEEP_FLIPS accuracy predictions
+    flipped per epoch. (3) Printed, not held: the float32 replica against
+    its float32 serial run, beside the float32 serial run with one weight
+    moved by one ulp."""
+    from dib_tpu_torch.parallel import member_seed
+    from dib_tpu_torch.scripts.sweep_drift import ULP, CliMembers, member_errors
+
+    members = CliMembers(cli_argv(tmp, tmp, *CLI_SWEEP), CLI_DEVICE)
+    final = checkpoint_leaves(sweep["whole_ckpt"], CLI_EPOCHS)
+    cli_sweep, _ = members.cli._model_from_args(members.args, members.bundle, device="cpu",
+                                                replicas=8)
+    cli_sweep.load_state_dict({name[len("params/model."):]: torch.from_numpy(value)
+                               for name, value in final.items() if name.startswith("params/")})
+    counts = members.accuracy_counts()
+    exact64 = members.stack(list(range(8)), torch.float64)
+    lines = []
+    for r in SWEEP_HELD:
+        copy_r = members.stack([r] * 8)[r]       # member r in slot r, as in the CLI's sweep
+        with np.load(os.path.join(sweep["whole"], f"history_replica{r}.npz")) as bits:
+            history = types.SimpleNamespace(**{name: bits[name] for name in bits.files})
+        leaves = {name: cli_sweep.member_values(name, value, r).double()
+                  for name, value in cli_sweep.state_dict().items()}
+        for name, value in vars(history).items():
+            if not np.array_equal(value, np.asarray(getattr(copy_r[0], name))):
+                fail(f"CLI sweep replica {r}: history {name} differs from a stack of eight "
+                     f"copies of member {r}")
+        for name, value in copy_r[1].items():
+            if not torch.equal(leaves[name], value):
+                fail(f"CLI sweep replica {r}: weight {name} differs from a stack of eight "
+                     f"copies of member {r}")
+        rows, errs, flips = member_errors(exact64[r], members.serial(r, torch.float64), counts)
+        kernels = {n: e for n, e in errs.items() if not n.endswith(".bias")}
+        biases = {n: e for n, e in errs.items() if n.endswith(".bias")}
+        if rows.max() > SWEEP_TOL or max(kernels.values()) > SWEEP_TOL or \
+                max(biases.values()) > SWEEP_BIAS_TOL or max(flips) > SWEEP_FLIPS:
+            fail(f"CLI sweep replica {r} in float64 vs the serial run of member seed "
+                 f"{member_seed(SEED, r)}: rows {rows.tolist()} (tol {SWEEP_TOL}), kernels "
+                 f"{max(kernels.values()):.3e} (tol {SWEEP_TOL}), biases "
+                 f"{max(biases.values()):.3e} (tol {SWEEP_BIAS_TOL}), flips {flips} (limit "
+                 f"{SWEEP_FLIPS})")
+        serial32 = members.serial(r)
+        drift = member_errors((history, leaves), serial32, counts)
+        nudged = member_errors(members.serial(r, nudge=ULP), serial32, counts)
+        print(f"CLI sweep replica {r}, float32, not held: vs its serial run, per epoch "
+              f"{[float(f'{e:.3g}') for e in drift[0]]}, leaves up to "
+              f"{max(drift[1].values()):.3e}, flips {drift[2]}; the serial run with its first "
+              f"integration kernel x (1 + 2^-23) vs the serial run, per epoch "
+              f"{[float(f'{e:.3g}') for e in nudged[0]]}, leaves up to "
+              f"{max(nudged[1].values()):.3e}, flips {nudged[2]}")
+        lines.append(f"replica {r}: history and all {len(copy_r[1])} weight leaves of the "
+                     f"float32 run equal a stack of eight copies of member {r} bit for bit; in "
+                     f"float64 vs the serial run over {CLI_EPOCHS} epochs rows "
+                     f"{rows.max():.3e}, kernels {max(kernels.values()):.3e} (tol {SWEEP_TOL}), "
+                     f"biases {max(biases.values()):.3e} (tol {SWEEP_BIAS_TOL}), flips "
+                     f"{max(flips)} (limit {SWEEP_FLIPS})")
+    return "; ".join(lines)
+
+
+class CrashAt:
+    """A hook that raises at ``epoch``, as a process killed mid-run."""
+
+    class Crash(Exception):
+        pass
+
+    def __init__(self, epoch):
+        self.epoch = epoch
+
+    def __call__(self, sweep, states, epoch):
+        if epoch == self.epoch:
+            raise CrashAt.Crash(f"crash at epoch {epoch}")
+
+
+def resume_amorphous_sweep(tmp, sweep_run):
+    """``run_amorphous_sweep(checkpoint_dir=)`` at phase 9's configuration and
+    cuts, with the MI hook persisting its records: a hook raises at epoch 4,
+    after the first chunk's checkpoint (epoch 2); the relaunch resumes from
+    it, and its records, its weights and the MI bounds it measures again at
+    epoch 4 equal phase 9's uninterrupted run bit for bit."""
+    from dib_tpu_torch.parallel import SweepInfoPerFeatureHook
+    from dib_tpu_torch.train.checkpoint import DIBCheckpointer
+
+    config, want, want_hook = sweep_run["config"], sweep_run["result"], sweep_run["hook"]
+    ckpt, persist = os.path.join(tmp, "sweep_ckpt"), os.path.join(tmp, "sweep_bounds")
+    hook = SweepInfoPerFeatureHook(config.mi_eval_batch_size, config.mi_eval_batches, seed=SEED,
+                                   persist=persist)
+    try:
+        run_sweep(config, [hook, CrashAt(SWEEP_EPOCHS)], {"use_flash": True},
+                  checkpoint_dir=ckpt)
+        fail("amorphous sweep: the crashing hook did not stop the run")
+    except CrashAt.Crash:
+        pass
+    if DIBCheckpointer(ckpt).all_steps() != [SWEEP_CHUNK]:
+        fail(f"amorphous sweep: steps {DIBCheckpointer(ckpt).all_steps()} after the crash, "
+             f"expected [{SWEEP_CHUNK}]")
+    hook = SweepInfoPerFeatureHook(config.mi_eval_batch_size, config.mi_eval_batches, seed=SEED,
+                                   persist=persist, resume=True)
+    result, groups, launches, _ = run_sweep(config, [hook], {"use_flash": True},
+                                            checkpoint_dir=ckpt)
+    steps = (SWEEP_EPOCHS - SWEEP_CHUNK) * SWEEP_STEPS_PER_EPOCH
+    blocks = len(result["states"].params["model"].aggregator.blocks)
+    print(f"main path launches (amorphous sweep resumed at epoch {result['resumed_from_epoch']}, "
+          f"{steps} steps, {SWEEP_EPOCHS - SWEEP_CHUNK} validation passes, 1 MI hook call): "
+          f"{json.dumps(launches)}")
+    if result["resumed_from_epoch"] != SWEEP_CHUNK or \
+            launches["flash_attention"] != blocks * (steps + SWEEP_EPOCHS - SWEEP_CHUNK) or \
+            launches["mi_row_stats"] != config.mi_eval_batches:
+        fail(f"amorphous sweep: resumed from {result['resumed_from_epoch']} with launches "
+             f"{launches}")
+    for r, (got, w) in enumerate(zip(result["records"], want["records"])):
+        for name in ("beta", "kl_per_feature", "loss", "val_loss", "metric", "val_metric"):
+            if not np.array_equal(getattr(got, name), getattr(w, name)):
+                fail(f"amorphous sweep: replica {r}'s {name} differs from the uninterrupted "
+                     f"run's")
+    want_params = want["states"].params.state_dict()
+    for name, value in result["states"].params.state_dict().items():
+        if not torch.equal(value, want_params[name]):
+            fail(f"amorphous sweep: weight {name} differs from the uninterrupted run's")
+    if list(hook.epochs) != list(want_hook.epochs) or not all(
+            np.array_equal(g["bounds"], w["bounds"])
+            for g, w in zip(hook.records, want_hook.records)):
+        fail("amorphous sweep: the MI bounds measured again differ from the uninterrupted "
+             "run's")
+    print(f"amorphous sweep: crashed at epoch {SWEEP_EPOCHS} after the checkpoint at epoch "
+          f"{SWEEP_CHUNK}; resumed from epoch {result['resumed_from_epoch']}; every record, all "
+          f"{len(want_params)} weight leaves and the MI bounds at epochs "
+          f"{hook.epochs.tolist()} (epoch {SWEEP_EPOCHS} measured again) equal phase 9's "
+          f"uninterrupted run bit for bit")
+    return launches
+
+
+def serve_checkpoint(serial):
+    """``InferenceEngine.from_checkpoint`` on the CLI run's directory, into a
+    model built from another seed, against the trained weights read
+    straight from the final step's leaves: SERVE_TOL."""
+    from dib_tpu_torch import cli
+    from dib_tpu_torch.serve import InferenceEngine
+    from dib_tpu_torch.train import DIBTrainer
+
+    args = cli.build_parser().parse_args(cli_argv(serial["whole"], serial["whole_ckpt"]))
+    bundle = cli._bundle_from_args(args)
+    trained, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE)
+    trained.load_state_dict({name[len("params/model."):]: torch.from_numpy(value)
+                             for name, value in checkpoint_leaves(serial["whole_ckpt"],
+                                                                  CLI_EPOCHS).items()
+                             if name.startswith("params/")})
+    args.seed += 1
+    fresh, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE)
+    engine = InferenceEngine.from_checkpoint(
+        DIBTrainer(fresh, bundle, cli._train_config(args), device=CLI_DEVICE),
+        serial["whole_ckpt"])
+    x = bundle.x_valid
+    served = engine.predict(x)["prediction"]
+    with torch.inference_mode():
+        want, _ = trained(torch.as_tensor(x, device=CLI_DEVICE), sample=False)
+    return compare(f"from_checkpoint predict vs the trained model, {len(x)} rows",
+                   [torch.from_numpy(served)], [want.cpu()], SERVE_TOL)
+
+
+def quarantine_corrupt_step(tmp, serial):
+    """One byte flipped in the newest step: it lands in ``quarantine/`` and
+    the step before it is restored."""
+    from dib_tpu_torch import cli
+    from dib_tpu_torch.train import DIBTrainer
+    from dib_tpu_torch.train.checkpoint import DIBCheckpointer
+
+    directory = os.path.join(tmp, "corrupt_ckpt")
+    shutil.copytree(serial["whole_ckpt"], directory)
+    path = os.path.join(directory, str(CLI_EPOCHS), "leaves.npz")
+    with open(path, "rb+") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0x01]))
+    args = cli.build_parser().parse_args(cli_argv(tmp, directory))
+    bundle = cli._bundle_from_args(args)
+    model, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE)
+    ckpt = DIBCheckpointer(directory)
+    reports = []
+    state, _, _ = ckpt.restore_latest_intact(
+        DIBTrainer(model, bundle, cli._train_config(args), device=CLI_DEVICE),
+        chunk_size=CLI_CADENCE, on_fallback=reports.append)
+    moved = os.path.join(directory, "quarantine", str(CLI_EPOCHS))
+    if state.epoch != CLI_EPOCHS - CLI_CADENCE or ckpt.fallback_skipped_steps != [CLI_EPOCHS] \
+            or not os.path.isfile(os.path.join(moved, "leaves.npz")) or \
+            CLI_EPOCHS in ckpt.all_steps():
+        fail(f"corrupt step: restored epoch {state.epoch}, skipped "
+             f"{ckpt.fallback_skipped_steps}, steps {ckpt.all_steps()}")
+    print(f"corrupt step: one byte flipped in step {CLI_EPOCHS}: moved to {moved} "
+          f"({reports[0]['error'][:120]}...); step {state.epoch} restored")
+
+
+def time_checkpoints(card, tmp, sweep_run, serial_ckpt):
+    """Save and restore of the north star's stacked state (phase 9's: 8 x
+    1,293,505 parameters, Adam's two moments, the history, 8 generators)
+    and of the CLI's serial state, host clock, median of 3."""
+    from dib_tpu_torch import cli
+    from dib_tpu_torch.parallel import BetaSweepTrainer, member_seed
+    from dib_tpu_torch.train import DIBTrainer
+    from dib_tpu_torch.train.checkpoint import DIBCheckpointer
+
+    config, bundle, result = sweep_run["config"], sweep_run["bundle"], sweep_run["result"]
+    states = result["states"]
+    sweep = BetaSweepTrainer(states.params["model"], bundle,
+                             config.train_config(SWEEP_STEPS_PER_EPOCH), config.beta_start,
+                             result["beta_ends"], device=CLI_DEVICE)
+    _, histories = sweep.init()
+    generators = [torch.Generator(device=CLI_DEVICE).manual_seed(member_seed(SEED, r))
+                  for r in range(len(result["beta_ends"]))]
+    args = cli.build_parser().parse_args(cli_argv(tmp, tmp))
+    cli_bundle = cli._bundle_from_args(args)
+    model, _ = cli._model_from_args(args, cli_bundle, device=CLI_DEVICE)
+    trainer = DIBTrainer(model, cli_bundle, cli._train_config(args), device=CLI_DEVICE)
+    serial_state, serial_history, _ = DIBCheckpointer(serial_ckpt).restore(trainer)
+    rows = {}
+    for label, owner, state, history, gens in (
+            ("north star sweep state", sweep, states, histories, generators),
+            ("CLI serial state", trainer, serial_state, serial_history,
+             torch.Generator(device=CLI_DEVICE).manual_seed(SEED))):
+        ckpt = DIBCheckpointer(os.path.join(tmp, f"timed_{len(rows)}"), max_to_keep=1)
+        save, restore = [], []
+        for step in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = ckpt.save(step + 1, state, history, gens, chunk_size=SWEEP_CHUNK)
+            save.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            ckpt.restore(owner)
+            torch.cuda.synchronize()
+            restore.append((time.perf_counter() - t0) * 1e3)
+        nbytes = os.path.getsize(os.path.join(path, "leaves.npz"))
+        n_params = sum(p.numel() for p in state.params.parameters())
+        rows[label] = (statistics.median(save), statistics.median(restore), nbytes)
+        print(f"timing [{card}] checkpoint of the {label} ({n_params} parameters, "
+              f"{nbytes / 1e6:.3f} MB of leaves): save {rows[label][0]:.4f} ms, restore "
+              f"{rows[label][1]:.4f} ms (host clock, median of 3, fsync included, warm page "
+              f"cache)")
+    return rows
+
+
+def time_boolean_steps(card):
+    """The boolean flagship's training step at the CLI defaults, serial and
+    as the CLI's 8-replica sweep, in turns."""
+    from dib_tpu_torch import cli
+    from dib_tpu_torch.parallel import BetaSweepTrainer
+    from dib_tpu_torch.train import DIBTrainer
+
+    args = cli.build_parser().parse_args(cli_argv("unused", "unused", *CLI_SWEEP))
+    bundle = cli._bundle_from_args(args)
+    config = cli._train_config(args)
+    model, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE)
+    serial = DIBTrainer(model, bundle, config, device=CLI_DEVICE)
+    stacked, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE, replicas=8)
+    ends = np.repeat(np.asarray(args.sweep_beta_ends), args.sweep_repeats)
+    sweep = BetaSweepTrainer(stacked, bundle, config, args.beta_start, ends, device=CLI_DEVICE)
+    gen = torch.Generator(device=CLI_DEVICE).manual_seed(SEED + 13)
+    x_all = torch.as_tensor(bundle.x_train, device=CLI_DEVICE)
+    y_all = torch.as_tensor(bundle.y_train, device=CLI_DEVICE)
+    inputs = {}
+    for name, trainer, lead in (("serial", serial, ()), ("8 replicas", sweep, (8,))):
+        rows = torch.randint(0, len(x_all), lead + (args.batch_size,), generator=gen,
+                             device=CLI_DEVICE)
+        eps = torch.randn(trainer.model.noise_shape(args.batch_size), generator=gen,
+                          device=CLI_DEVICE)
+        beta = trainer._betas(0, 1)[0]
+        state, _ = trainer.init()
+        inputs[name] = (trainer, state, x_all[rows], y_all[rows], beta, eps)
+    fns = {name: (lambda t=t, s=s, x=x, y=y, b=b, e=e: t.train_step(s, x, y, b, e))
+           for name, (t, s, x, y, b, e) in inputs.items()}
+    ms = host_ms(fns)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"timing [{card}] boolean flagship training step ({n_params} parameters, batch "
+          f"{args.batch_size}): serial {ms['serial']:.4f} ms, 8 replicas {ms['8 replicas']:.4f} "
+          f"ms beside 8 x serial {8 * ms['serial']:.4f} ms (host clock, median of 10 in turns)")
+    for name, fn in fns.items():
+        print(f"profile [{card}] boolean training step ({name}): "
+              f"{profile_breakdown(fn, top=6, unprofiled_ms=ms[name])}")
+    return ms
+
+
+def drive_cli(card, sweep_run):
+    """Phase 12: (a) the serial CLI with a resume, (b) the README's sweep
+    command with a resume and replicas 0 and 7 held to serial runs, (c) the
+    amorphous sweep driver with a resume, (d) serving a checkpoint, (e) a
+    corrupt step, (f) timings."""
+    import tempfile
+
+    from dib_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(cli_argv("unused", "unused"))
+    bundle = cli._bundle_from_args(args)
+    model, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != CLI_PARAMS or len(bundle.x_train) // args.batch_size != 8:
+        fail(f"CLI: {n_params} parameters, {len(bundle.x_train)} rows; expected {CLI_PARAMS} "
+             f"and 8 steps of {args.batch_size}")
+    print(f"CLI: python -m dib_tpu_torch train at its defaults (boolean_circuit, "
+          f"DistributedIBModel of {n_params} parameters, batch {args.batch_size}, 8 steps per "
+          f"epoch, MI hook 1024 x 8); cut: {' '.join(CLI_CUTS)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        serial = cli_resume("serial", tmp, [], ["history.npz"], 3)
+        with np.load(os.path.join(tmp, "serial_run", "info_bounds.npz")) as bounds:
+            if bounds["epochs"].tolist() != [4, 8, 12] or \
+                    int(bounds["resumed_from_epoch"]) != serial["resumed_from"] or \
+                    not np.isfinite(bounds["bounds_bits"]).all():
+                fail(f"CLI serial: the resumed run's info_bounds.npz holds epochs "
+                     f"{bounds['epochs'].tolist()} spliced at {int(bounds['resumed_from_epoch'])}"
+                     f", expected [4, 8, 12] spliced at {serial['resumed_from']}")
+        sweep = cli_resume("sweep", tmp, CLI_SWEEP,
+                           [f"history_replica{r}.npz" for r in range(8)], 3 * 8)
+        for r in range(8):
+            with np.load(os.path.join(sweep["whole"], f"history_replica{r}.npz")) as hist:
+                if any(not np.isfinite(hist[k]).all() for k in hist.files):
+                    fail(f"CLI sweep: replica {r} is not finite")
+        print(f"CLI sweep: 8 replicas, endpoints {sweep['summary']['beta_ends']}, all finite; "
+              f"{hold_cli_replicas(tmp, sweep)}")
+        amorphous_launches = resume_amorphous_sweep(tmp, sweep_run)
+        serve_err = serve_checkpoint(serial)
+        quarantine_corrupt_step(tmp, serial)
+        for label, run in (("serial", serial), ("sweep", sweep)):
+            print(f"timing [{card}] CLI {label} wall (host clock, s): " + json.dumps(
+                {k: round(v, 3) for k, v in run["wall_s"].items()}))
+        checkpoint_ms = time_checkpoints(card, tmp, sweep_run, serial["whole_ckpt"])
+    step_ms = time_boolean_steps(card)
+    launches = {name: serial["launches"][name] + sweep["launches"][name] +
+                amorphous_launches[name] for name in serial["launches"]}
+    return dict(launches=launches, serve_err=serve_err, checkpoint_ms=checkpoint_ms,
+                step_ms=step_ms)
 
 
 # --------------------------------------------------------------------------
@@ -1823,7 +2333,7 @@ def main() -> int:
     flash_err, flash_bf16_err = check_flash()
     density_errs = check_log_density_mat()
 
-    # ---- 4-10. main paths and their checks -----------------------------
+    # ---- 4-10 and 12. main paths and their checks ----------------------
     serving = serve_and_query()
     flagship = train_flagship()
     paths_step = compare_paths(flagship)
@@ -1833,6 +2343,7 @@ def main() -> int:
     sweep_run = drive_sweep()
     northstar = drive_northstar()
     card_vs_cpu = hold_bf16_card_vs_cpu(flagship)
+    cli_run = drive_cli(card, sweep_run)
     bench_launches = run_microbench()
 
     # ---- 11. timings ---------------------------------------------------
@@ -1896,9 +2407,9 @@ def main() -> int:
           f"(host clock, one run); probe hook {probe_ms:.4f} ms per call")
     time_sweep(card, sweep_run, northstar, paths_step, flagship)
 
-    # ---- 12-13. summary lines ------------------------------------------
+    # ---- 13-14. summary lines ------------------------------------------
     runs = (serving["launches"], flagship["launches"], driver["launches"],
-            sweep_run["launches"], northstar["launches"], bench_launches)
+            sweep_run["launches"], northstar["launches"], cli_run["launches"], bench_launches)
     total = {name: sum(r.get(name, 0) for r in runs)
              for name in ("mi_row_stats", "flash_attention", "flash_attention_bf16",
                           "log_density_mat")}

@@ -1,0 +1,677 @@
+"""Command-line trainer of the port: ``python -m dib_tpu_torch [train] ...``
+(counterpart of ``dib_tpu/cli.py``).
+
+``train`` takes the JAX package's flags with the same defaults and trains a
+``DistributedIBModel`` on a registered dataset, serially or, with
+``--sweep_beta_ends``, as a beta sweep of R replicas in one stacked
+program; ``--checkpoint_dir`` saves every ``--checkpoint_frequency`` epochs
+and resumes when the directory holds a checkpoint, and SIGTERM/SIGINT
+finish the chunk in flight, write a chunk-aligned checkpoint and exit with
+75. ``workload amorphous|amorphous_protocols`` runs the flagship drivers.
+
+What the port does not implement is refused before any training, with one
+line naming its item in ROADMAP.md, never ignored: the watchdog, the
+heartbeat, fault plans (``DIB_FAULT_PLAN``), the event stream
+(``--telemetry-dir``, ``--runs-root``), meshes (``--mesh_*``, ``--engine
+shard_map``), the other subcommands and workloads, and datasets the port's
+registry lacks.
+
+Artifacts (in ``--artifact_outdir``), written in this order:
+  - ``history.npz`` (``history_replica{r}.npz`` for a sweep): beta,
+    per-feature KL, loss and validation loss series (bits);
+  - ``info_bounds.npz`` (``info_bounds_replica{r}.npz``) with
+    ``--info_bounds_frequency``, spliced with a pre-crash file on resume;
+  - ``run_summary.json``;
+  - the distributed info plane(s) as PNG, and compression matrices with
+    ``--save_compression_matrices_frequency``. Where matplotlib does not
+    import, no PNG is written: one stderr line says so and
+    ``run_summary.json`` lists the plots under ``"not_rendered"``
+    (compression matrices, drawn during training, are then refused).
+
+The entry points run on the GPU; tests pass ``device="cpu"`` to
+:func:`run` or :func:`main`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import math
+import os
+import sys
+from typing import Sequence
+
+_ITEM = "ROADMAP.md queue 1, item {}"
+JAX_CHECKPOINTS = _ITEM.format("1 (reading JAX/Orbax checkpoints)")
+SERVE_STACK = _ITEM.format("2 (the HTTP serve stack)")
+DURABILITY = _ITEM.format("3 (watchdog, telemetry and fault plans)")
+DATASETS = _ITEM.format("4 (the tabular and pendulum datasets)")
+WORKLOADS = _ITEM.format("5 (the other workloads)")
+SUBCOMMANDS = _ITEM.format("6 (the CLI's other subcommands)")
+MULTI_GPU = _ITEM.format("7 (multi-GPU replicas)")
+CONTRASTIVE_SWEEP = _ITEM.format("8 (contrastive sweeps)")
+
+# train flags the port refuses when given a value other than the default
+REFUSED_FLAGS = {
+    "watchdog": DURABILITY,
+    "heartbeat": DURABILITY,
+    "watchdog_floor_s": DURABILITY,
+    "watchdog_first_timeout_s": DURABILITY,
+    "telemetry_dir": DURABILITY,
+    "runs_root": DURABILITY,
+    "mesh_beta": MULTI_GPU,
+    "mesh_data": MULTI_GPU,
+    "engine": MULTI_GPU,
+}
+# values of those flags that do what the port does: 'vmap' is its stacked
+# program, and '' turns off the event stream the port never writes
+ACCEPTED_VALUES = {"engine": ("vmap",), "telemetry_dir": ("",)}
+REFUSED_SUBCOMMANDS = {
+    "serve": SERVE_STACK,
+    "telemetry": SUBCOMMANDS,
+    "lint": SUBCOMMANDS,
+    "sched": SUBCOMMANDS,
+    "stream": SUBCOMMANDS,
+    "ckpt": SUBCOMMANDS,
+    "study": SUBCOMMANDS,
+}
+PORTED_WORKLOADS = ("amorphous", "amorphous_protocols")
+NO_EVENT_STREAM = "the port writes no event stream"
+
+
+def _add_telemetry_dir_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--telemetry-dir", "--telemetry_dir", dest="telemetry_dir", type=str,
+                        default=None,
+                        help=f"Not ported ({NO_EVENT_STREAM}): refused unless ''; {DURABILITY}.")
+    parser.add_argument("--runs-root", "--runs_root", dest="runs_root", type=str, default="",
+                        help=f"Not ported ({NO_EVENT_STREAM}): refused when set; {DURABILITY}.")
+
+
+def _add_model_flags(parser: argparse.ArgumentParser) -> None:
+    """Flags that define the model and its dataset (everything needed to
+    rebuild the architecture a checkpoint was trained with)."""
+    parser.add_argument("--dataset", default="boolean_circuit",
+                        help="Registered dataset name (the port has boolean_circuit and "
+                             "amorphous_particles).")
+    parser.add_argument("--data_path", type=str, default="./data/")
+    parser.add_argument("--ib", action=argparse.BooleanOptionalAction, default=False,
+                        help="Vanilla IB: all features into a single bottleneck.")
+    parser.add_argument("--use_positional_encoding", action=argparse.BooleanOptionalAction,
+                        default=True)
+    parser.add_argument("--activation_fn", type=str, default="relu")
+    parser.add_argument("--feature_embedding_dimension", type=int, default=32,
+                        help="Channel width d; with --info_bounds_frequency the GPU's MI "
+                             "kernel takes d <= 64.")
+    parser.add_argument("--feature_encoder_architecture", type=int, nargs="+",
+                        default=[128, 128])
+    parser.add_argument("--number_positional_encoding_frequencies", type=int, default=5,
+                        help="Reference convention: n yields 2^1..2^(n-1), i.e. n-1 sinusoids.")
+    parser.add_argument("--integration_network_architecture", type=int, nargs="+",
+                        default=[256, 256])
+    parser.add_argument("--infonce_loss", action=argparse.BooleanOptionalAction, default=False)
+    parser.add_argument("--infonce_shared_dimensionality", type=int, default=64)
+    parser.add_argument("--infonce_y_encoder_architecture", type=int, nargs="+",
+                        default=[128, 128])
+    parser.add_argument("--boolean_random_circuit", action=argparse.BooleanOptionalAction,
+                        default=False)
+    parser.add_argument("--boolean_number_input_gates", type=int, default=10)
+    parser.add_argument("--pendulum_time_delta", type=float, default=2)
+    parser.add_argument("--compute_dtype", type=str, default=None,
+                        choices=[None, "float32", "bfloat16"],
+                        help="Matmul compute dtype (parameters stay float32).")
+    parser.add_argument("--seed", type=int, default=0)
+
+
+class _TrainParser(argparse.ArgumentParser):
+    """Refuses what the port does not implement as it parses."""
+
+    def parse_args(self, args=None, namespace=None):
+        parsed = super().parse_args(args, namespace)
+        problem = refusal(parsed, {action.dest: action.default for action in self._actions})
+        if problem:
+            self.error(problem)
+        return parsed
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = _TrainParser(
+        prog="dib_tpu_torch",
+        description="Train a Distributed IB model on the GPU (the PyTorch/CUDA port; "
+                    f"{NO_EVENT_STREAM}).",
+    )
+    parser.add_argument("command", nargs="?", default="train",
+                        choices=["train", "workload", "telemetry", "serve", "lint", "sched",
+                                 "stream", "ckpt", "study"],
+                        help="'train' (flags below) or 'workload' (amorphous, "
+                             "amorphous_protocols; see `dib_tpu_torch workload --help`). "
+                             "The others are not ported and are refused.")
+    _add_model_flags(parser)
+    parser.add_argument("--artifact_outdir", type=str, default="./training_artifacts/")
+    parser.add_argument("--learning_rate", type=float, default=3e-4)
+    parser.add_argument("--beta_start", type=float, default=1e-4)
+    parser.add_argument("--beta_end", type=float, default=3e0)
+    parser.add_argument("--number_pretraining_epochs", type=int, default=10**3)
+    parser.add_argument("--number_annealing_epochs", type=int, default=10**4)
+    parser.add_argument("--batch_size", type=int, default=128)
+    parser.add_argument("--optimizer", type=str, default="adam", help="'adam' or 'sgd'.")
+    parser.add_argument("--save_compression_matrices_frequency", type=int, default=0)
+    parser.add_argument("--infonce_similarity", type=str, default="l2",
+                        choices=["l2sq", "l2", "l1", "linf", "cosine"])
+    parser.add_argument("--infonce_temperature", type=float, default=1.0)
+    parser.add_argument("--steps_per_epoch", type=int, default=0,
+                        help="0 -> ceil(num_train / batch_size).")
+    parser.add_argument("--warmup_steps", type=int, default=0)
+    parser.add_argument("--max_val_points", type=int, default=4096)
+    parser.add_argument("--info_bounds_frequency", type=int, default=0,
+                        help="Epoch cadence of per-feature MI sandwich bounds (0 = off).")
+    parser.add_argument("--sweep_beta_ends", type=float, nargs="+", default=None,
+                        help="Train a replica per end-beta as one stacked program.")
+    parser.add_argument("--sweep_repeats", type=int, default=1,
+                        help="Independent seeds per sweep endpoint.")
+    parser.add_argument("--mesh_beta", type=int, default=None,
+                        help=f"Not ported: refused when set; {MULTI_GPU}.")
+    parser.add_argument("--mesh_data", type=int, default=None,
+                        help=f"Not ported: refused when set; {MULTI_GPU}.")
+    parser.add_argument("--engine", choices=("auto", "vmap", "shard_map"), default="auto",
+                        help="'auto' and 'vmap' run the stacked program; 'shard_map' is not "
+                             f"ported and is refused ({MULTI_GPU}).")
+    parser.add_argument("--checkpoint_dir", type=str, default="",
+                        help="Save every --checkpoint_frequency epochs (serial and sweep) and "
+                             "resume when the directory holds a checkpoint.")
+    parser.add_argument("--checkpoint_frequency", type=int, default=500)
+    parser.add_argument("--watchdog", action="store_true",
+                        help=f"Not ported: refused; {DURABILITY}.")
+    parser.add_argument("--heartbeat", type=str, default="",
+                        help=f"Not ported: refused when set; {DURABILITY}.")
+    parser.add_argument("--watchdog_floor_s", type=float, default=45.0,
+                        help=f"Not ported: refused when set; {DURABILITY}.")
+    parser.add_argument("--watchdog_first_timeout_s", type=float, default=600.0,
+                        help=f"Not ported: refused when set; {DURABILITY}.")
+    parser.add_argument("--preempt_grace_s", type=float, default=30.0,
+                        help="SIGTERM/SIGINT grace budget: finish the chunk in flight, write a "
+                             "chunk-aligned checkpoint and exit with 75; past the budget the "
+                             "process exits anyway. 0 disables the handler.")
+    _add_telemetry_dir_flag(parser)
+    return parser
+
+
+def refusal(args, defaults: dict) -> str | None:
+    """The one-line reason the port refuses these train flags (``defaults``:
+    each flag's default), or None."""
+    for dest, item in REFUSED_FLAGS.items():
+        value = getattr(args, dest)
+        if value != defaults[dest] and value not in ACCEPTED_VALUES.get(dest, ()):
+            flag = "--" + (dest.replace("_", "-") if dest in ("telemetry_dir", "runs_root")
+                           else dest)
+            return f"{flag} {value!r} is not ported ({item})"
+    if os.environ.get("DIB_FAULT_PLAN"):
+        return f"DIB_FAULT_PLAN (fault plans) is not ported ({DURABILITY})"
+    if args.command in REFUSED_SUBCOMMANDS:
+        return (f"the {args.command!r} subcommand is not ported "
+                f"({REFUSED_SUBCOMMANDS[args.command]})")
+    if args.command == "workload":
+        return "the 'workload' subcommand must come first: python -m dib_tpu_torch workload ..."
+    from dib_tpu_torch.data.registry import available_datasets
+
+    if args.dataset not in available_datasets():
+        return (f"dataset {args.dataset!r} is not ported (the port has "
+                f"{available_datasets()}; {DATASETS})")
+    if args.infonce_loss and args.sweep_beta_ends:
+        return f"--infonce_loss with --sweep_beta_ends is not ported ({CONTRASTIVE_SWEEP})"
+    if args.optimizer not in ("adam", "sgd"):
+        return f"--optimizer {args.optimizer!r}: the port has 'adam' and 'sgd'"
+    return None
+
+
+def _dataset_kwargs(args) -> dict:
+    return {
+        "data_path": args.data_path,
+        "boolean_random_circuit": args.boolean_random_circuit,
+        "boolean_number_input_gates": args.boolean_number_input_gates,
+        "pendulum_time_delta": args.pendulum_time_delta,
+        "seed": args.seed,
+    }
+
+
+def _bundle_from_args(args):
+    """The dataset bundle from the model flags (``--ib`` and
+    ``--infonce_loss`` adjust it, as the trainer expects)."""
+    from dib_tpu_torch.data import get_dataset
+
+    bundle = get_dataset(args.dataset, **_dataset_kwargs(args))
+    if args.ib:
+        bundle = bundle.as_vanilla_ib()
+    if args.infonce_loss:
+        bundle.loss = "infonce"
+    return bundle
+
+
+def _model_from_args(args, bundle, *, device=None, replicas: int | None = None):
+    """(model, y_encoder) from the model flags: the one place the flags map
+    to an architecture. The weights come from CPU generators: seeded with
+    ``--seed``, or for a sweep member r with ``member_seed(seed, r)``."""
+    import torch
+
+    from dib_tpu_torch.models import DistributedIBModel, YEncoder
+    from dib_tpu_torch.parallel import member_seed
+
+    contrastive = args.infonce_loss
+    # n posenc frequencies in the reference convention = n-1 sinusoids
+    nfreq = args.number_positional_encoding_frequencies - 1 if args.use_positional_encoding else 0
+    compute_dtype = None if args.compute_dtype in (None, "float32") else args.compute_dtype
+    generator = (torch.Generator().manual_seed(args.seed) if replicas is None
+                 else [torch.Generator().manual_seed(member_seed(args.seed, r))
+                       for r in range(replicas)])
+    model = DistributedIBModel(
+        feature_dimensionalities=tuple(bundle.feature_dimensionalities),
+        encoder_hidden=tuple(args.feature_encoder_architecture),
+        integration_hidden=tuple(args.integration_network_architecture),
+        output_dim=(args.infonce_shared_dimensionality if contrastive
+                    else bundle.output_dimensionality),
+        embedding_dim=args.feature_embedding_dimension,
+        use_positional_encoding=args.use_positional_encoding,
+        num_posenc_frequencies=max(nfreq, 0),
+        activation=args.activation_fn,
+        output_activation=bundle.output_activation,
+        compute_dtype=compute_dtype,
+        device=device, generator=generator, replicas=replicas,
+    )
+    y_encoder = None
+    if contrastive:
+        y_encoder = YEncoder(
+            in_dim=int(bundle.y_train.shape[-1]),
+            hidden=tuple(args.infonce_y_encoder_architecture),
+            shared_dim=args.infonce_shared_dimensionality,
+            num_posenc_frequencies=max(nfreq, 0),
+            activation=args.activation_fn,
+            compute_dtype=compute_dtype,
+            generator=generator,
+        ).to(next(model.parameters()).device)
+    return model, y_encoder
+
+
+def _train_config(args):
+    from dib_tpu_torch.train import TrainConfig
+
+    return TrainConfig(
+        learning_rate=args.learning_rate,
+        batch_size=args.batch_size,
+        beta_start=args.beta_start,
+        beta_end=args.beta_end,
+        num_pretraining_epochs=args.number_pretraining_epochs,
+        num_annealing_epochs=args.number_annealing_epochs,
+        steps_per_epoch=args.steps_per_epoch,
+        warmup_steps=args.warmup_steps,
+        optimizer=args.optimizer,
+        max_val_points=args.max_val_points,
+        infonce_similarity=args.infonce_similarity,
+        infonce_temperature=args.infonce_temperature,
+    )
+
+
+def matplotlib_available() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def run(args, device=None) -> dict:
+    """Execute a training run from parsed flags on ``device`` (``None``
+    means the GPU). Returns the run summary, also written as
+    ``run_summary.json``; a preempted run's says ``"status":
+    "preempted"``."""
+    import numpy as np
+    import torch
+
+    from dib_tpu_torch.device import resolve_device
+    from dib_tpu_torch.ops.entropy import sequence_entropy_bits
+    from dib_tpu_torch.parallel import BetaSweepTrainer, PerReplicaHook, member_seed
+    from dib_tpu_torch.train import CompressionMatrixHook, DIBTrainer, Every, InfoPerFeatureHook
+    from dib_tpu_torch.train.checkpoint import CheckpointHook, DIBCheckpointer
+    from dib_tpu_torch.train.history import history_extend
+    from dib_tpu_torch.train.preempt import PreemptionGuard, TrainingPreempted
+
+    device = resolve_device(device)
+    render = matplotlib_available()
+    if args.save_compression_matrices_frequency and not render:
+        raise SystemExit("--save_compression_matrices_frequency draws with matplotlib, which "
+                         "does not import here; drop the flag")
+    bundle = _bundle_from_args(args)
+    config = _train_config(args)
+    outdir = args.artifact_outdir
+    os.makedirs(outdir, exist_ok=True)
+
+    cadences = [c for c in (args.save_compression_matrices_frequency,
+                            args.info_bounds_frequency) if c]
+    hook_every = math.gcd(*cadences, args.checkpoint_frequency if args.checkpoint_dir else 0)
+
+    def make_hooks(subdir: str):
+        hooks, info_hook = [], None
+        if args.info_bounds_frequency:
+            info_hook = InfoPerFeatureHook(seed=args.seed)
+            hooks.append(Every(args.info_bounds_frequency, info_hook))
+        if args.save_compression_matrices_frequency:
+            hooks.append(Every(args.save_compression_matrices_frequency,
+                               CompressionMatrixHook(subdir, seed=args.seed)))
+        return hooks, info_hook
+
+    guard = PreemptionGuard(args.preempt_grace_s) if args.preempt_grace_s > 0 else None
+    entropy_y = None
+    y_arr = np.asarray(bundle.y_train)
+    if bundle.loss_is_info_based and not args.infonce_loss and np.allclose(y_arr,
+                                                                          np.round(y_arr)):
+        # discrete labels only: continuous y would make H(Y) a log2(N) artifact
+        entropy_y = sequence_entropy_bits(y_arr)
+    summary: dict = {"dataset": args.dataset, "artifacts": []}
+    if "source" in bundle.extras:
+        summary["data_source"] = bundle.extras["source"]
+
+    info_hooks = {}     # MI hooks by the file their bounds go to, in replica order
+    sweep_mode = bool(args.sweep_beta_ends)
+    if sweep_mode:
+        ends = np.repeat(np.asarray(args.sweep_beta_ends, np.float64), args.sweep_repeats)
+        model, _ = _model_from_args(args, bundle, device=device, replicas=len(ends))
+        trainer = BetaSweepTrainer(model, bundle, config, args.beta_start, ends, device=device)
+
+        def make_replica_hook(r: int):
+            hooks_r, info_hook_r = make_hooks(os.path.join(outdir, f"replica{r}"))
+            if info_hook_r is not None:
+                info_hooks[f"info_bounds_replica{r}.npz"] = info_hook_r
+            return _CombinedHooks(hooks_r)
+
+        hooks = [PerReplicaHook(make_replica_hook)] if cadences else []
+        generators = [torch.Generator(device=device).manual_seed(member_seed(args.seed, r))
+                      for r in range(len(ends))]
+    else:
+        model, y_encoder = _model_from_args(args, bundle, device=device)
+        trainer = DIBTrainer(model, bundle, config, y_encoder=y_encoder, device=device)
+        hooks, info_hook = make_hooks(outdir)
+        if info_hook is not None:
+            info_hooks["info_bounds.npz"] = info_hook
+        generators = torch.Generator(device=device).manual_seed(args.seed)
+
+    state = history = remaining = None
+    if args.checkpoint_dir:
+        ckpt = DIBCheckpointer(args.checkpoint_dir)
+        hooks.append(Every(args.checkpoint_frequency, CheckpointHook(ckpt)))
+        if ckpt.latest_step is not None:
+            # the newest intact step: a step a kill left corrupt is
+            # quarantined and the gap trained again
+            state, history, generators = ckpt.restore_latest_intact(
+                trainer, chunk_size=hook_every, on_fallback=lambda info: print(
+                    f"warning: checkpoint step {info['step']} is corrupt and was moved to "
+                    f"{info['quarantined']}: {info['error']}", file=sys.stderr))
+            done = state.epoch
+            remaining = max(config.num_epochs - done, 0)
+            capacity, cursor = history["beta"].shape[-1], history["cursor"]
+            if cursor + remaining > capacity:
+                # a longer budget than the checkpointed run's
+                history = history_extend(history, cursor + remaining - capacity)
+            summary["resumed_from_epoch"] = done
+            print(f"resuming from checkpoint at epoch {done} ({remaining} to go)",
+                  file=sys.stderr)
+
+    resumed_from = summary.get("resumed_from_epoch")
+
+    def save_info_bounds():
+        """The MI bounds so far, spliced after a resumed run's earlier ones."""
+        for name, hook in info_hooks.items():
+            if hook.records:
+                _save_info_bounds(os.path.join(outdir, name), hook.epochs, hook.bounds_bits,
+                                  resumed_from=resumed_from)
+                summary["artifacts"].append(os.path.join(outdir, name))
+
+    start = state.epoch if state is not None else 0
+    try:
+        with guard if guard is not None else contextlib.nullcontext():
+            print(f"training: epochs {start} -> {config.num_epochs}, chunks of "
+                  f"{hook_every or config.num_epochs}", file=sys.stderr, flush=True)
+            # (state, history) are a sweep's (states, histories): passed by position
+            state, records = trainer.fit(generators, remaining, hooks, hook_every, state,
+                                         history, preempt=guard)
+    except TrainingPreempted as exc:
+        summary.update(status="preempted", preempted_at_epoch=exc.epoch,
+                       checkpoint_saved=exc.checkpoint_saved)
+        print(f"preempted: {exc}; a relaunch resumes from the chunk-aligned checkpoint",
+              file=sys.stderr)
+        save_info_bounds()
+        _write_summary(outdir, summary)
+        return summary
+
+    plots = []      # (bits, file name), drawn after the numbers are written
+    save_info_bounds()
+    if sweep_mode:
+        for r, record in enumerate(records):
+            bits = record.to_bits(bundle.loss_is_info_based)
+            _save_history(os.path.join(outdir, f"history_replica{r}.npz"), bits)
+            plots.append((bits, f"distributed_info_plane_replica{r}.png"))
+        summary["num_replicas"] = len(ends)
+        summary["beta_ends"] = [float(b) for b in ends]
+        summary["final_val_loss"] = [float(r.to_bits(bundle.loss_is_info_based).val_loss[-1])
+                                     for r in records]
+    else:
+        bits = records.to_bits(bundle.loss_is_info_based)
+        _save_history(os.path.join(outdir, "history.npz"), bits)
+        plots.append((bits, "distributed_info_plane.png"))
+        summary["final_loss"] = float(bits.loss[-1])
+        summary["final_val_loss"] = float(bits.val_loss[-1])
+        summary["final_total_kl_bits"] = float(bits.total_kl[-1])
+    _write_summary(outdir, summary)
+    if render:
+        from dib_tpu_torch.viz import save_distributed_info_plane
+
+        for bits, filename in plots:
+            summary["artifacts"].append(save_distributed_info_plane(
+                bits.kl_per_feature, bits.loss, outdir, entropy_y=entropy_y,
+                filename=filename))
+    else:
+        summary["not_rendered"] = [os.path.join(outdir, filename) for _, filename in plots]
+        print(f"matplotlib does not import here: not drawn: {', '.join(summary['not_rendered'])}",
+              file=sys.stderr)
+    _write_summary(outdir, summary)
+    return summary
+
+
+def _save_history(path: str, bits) -> None:
+    import numpy as np
+
+    np.savez(path, beta=bits.beta, kl_per_feature=bits.kl_per_feature, loss=bits.loss,
+             val_loss=bits.val_loss, metric=bits.metric, val_metric=bits.val_metric)
+
+
+def _write_summary(outdir: str, summary: dict) -> None:
+    with open(os.path.join(outdir, "run_summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+        f.write("\n")
+
+
+def _save_info_bounds(path: str, epochs, bounds_bits, resumed_from: int | None = None) -> None:
+    """Write an MI-bound trajectory npz, merging with a pre-crash file.
+
+    After a resume the fresh hooks hold only the records made since, while
+    the same directory may hold the interrupted run's npz: its strictly
+    earlier epochs are prepended, and ``resumed_from_epoch`` records the
+    splice point.
+    """
+    import zipfile
+
+    import numpy as np
+
+    epochs = np.asarray(epochs)
+    bounds_bits = np.asarray(bounds_bits)
+    extras = {}
+    if resumed_from is not None:
+        extras["resumed_from_epoch"] = np.asarray(resumed_from)
+        if os.path.exists(path) and epochs.size:
+            try:
+                with np.load(path) as prev:
+                    prev_epochs = np.asarray(prev["epochs"])
+                    prev_bounds = np.asarray(prev["bounds_bits"])
+                keep = prev_epochs < epochs.min()
+                if keep.any() and prev_bounds.shape[1:] == bounds_bits.shape[1:]:
+                    epochs = np.concatenate([prev_epochs[keep], epochs])
+                    bounds_bits = np.concatenate([prev_bounds[keep], bounds_bits])
+            except (OSError, KeyError, ValueError, zipfile.BadZipFile) as exc:
+                print(f"warning: discarding unreadable prior trajectory {path}: {exc}",
+                      file=sys.stderr)
+    np.savez(path, epochs=epochs, bounds_bits=bounds_bits, **extras)
+
+
+class _CombinedHooks:
+    """Several serial hooks as one callable (for ``PerReplicaHook``)."""
+
+    def __init__(self, hooks: Sequence):
+        self.hooks = list(hooks)
+
+    def check(self, trainer):
+        for hook in self.hooks:
+            if hasattr(hook, "check"):
+                hook.check(trainer)
+
+    def __call__(self, trainer, state, epoch: int):
+        for hook in self.hooks:
+            hook(trainer, state, epoch)
+
+
+# ---------------------------------------------------------------- workloads
+# ``python -m dib_tpu_torch workload <name>``: the flagship drivers, with
+# ``--set field=value`` overrides of the workload's config dataclass.
+
+def _coerce(value: str):
+    import ast
+
+    lowered = value.lower()
+    if lowered in ("true", "false"):
+        return lowered == "true"
+    if lowered in ("none", "null"):
+        return None
+    try:
+        return ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        return value
+
+
+def _parse_sets(pairs: Sequence[str]) -> dict:
+    out = {}
+    for pair in pairs:
+        if "=" not in pair:
+            raise SystemExit(f"--set expects field=value, got {pair!r}")
+        key, value = pair.split("=", 1)
+        out[key] = _coerce(value)
+    return out
+
+
+def _apply_config(config_cls, overrides: dict):
+    import dataclasses
+
+    fields = {f.name for f in dataclasses.fields(config_cls)}
+    bad = set(overrides) - fields
+    if bad:
+        raise SystemExit(f"Unknown {config_cls.__name__} field(s) {sorted(bad)}; "
+                         f"valid: {sorted(fields)}")
+    return config_cls(**overrides)
+
+
+def _json_safe(x, depth: int = 0):
+    """Compact JSON view of a workload result (arrays and modules -> labels)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    if isinstance(x, (bool, int, float, str)) or x is None:
+        return x
+    if isinstance(x, (np.integer, np.floating)):
+        return x.item()
+    if isinstance(x, torch.Tensor):
+        return f"<tensor {list(x.shape)} {str(x.dtype).replace('torch.', '')}>"
+    if isinstance(x, (torch.nn.Module, torch.optim.Optimizer)):
+        return f"<{type(x).__name__}>"
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return _json_safe({f.name: getattr(x, f.name) for f in dataclasses.fields(x)}, depth)
+    if isinstance(x, dict) and depth < 2:
+        return {str(k): _json_safe(v, depth + 1) for k, v in x.items()}
+    if isinstance(x, (list, tuple)) and len(x) <= 12:
+        values = [_json_safe(v, depth + 1) for v in x]
+        if all(isinstance(v, (bool, int, float, str, type(None))) for v in values):
+            return values
+    try:
+        arr = np.asarray(x)
+        if arr.dtype != object:
+            return f"<array {list(arr.shape)} {arr.dtype}>"
+    except (ValueError, TypeError, RuntimeError):
+        pass
+    return f"<{type(x).__name__}>"
+
+
+def workload_main(argv: Sequence[str], device=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="dib_tpu_torch workload",
+        description=f"Run a paper workload end to end ({NO_EVENT_STREAM}).")
+    parser.add_argument("name", choices=["boolean", "amorphous", "amorphous_protocols", "chaos",
+                                         "chaos_state_sweep", "characterization",
+                                         "radial_shells"],
+                        help=f"The port has {', '.join(PORTED_WORKLOADS)}; the others are "
+                             f"refused ({WORKLOADS}).")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--outdir", default=None, help="Artifact directory.")
+    _add_telemetry_dir_flag(parser)
+    parser.add_argument("--set", action="append", default=[], metavar="FIELD=VALUE",
+                        help="Override a workload config field or keyword (repeatable), "
+                             "e.g. --set num_steps=1000")
+    args = parser.parse_args(argv)
+    if args.name not in PORTED_WORKLOADS:
+        parser.error(f"workload {args.name!r} is not ported ({WORKLOADS})")
+    if args.telemetry_dir not in (None, "") or args.runs_root:
+        parser.error(f"--telemetry-dir/--runs-root: {NO_EVENT_STREAM} ({DURABILITY})")
+    overrides = _parse_sets(args.set)
+
+    from dib_tpu_torch import workloads as wl
+
+    kwargs = {"outdir": args.outdir} if args.outdir else {}
+    render = matplotlib_available()
+    if not render:
+        print("matplotlib does not import here: the workload draws nothing (render=False)",
+              file=sys.stderr)
+    if args.name == "amorphous":
+        config = _apply_config(wl.AmorphousWorkloadConfig, overrides)
+        result = wl.run_amorphous_workload(args.seed, config, device=device, render=render,
+                                           **kwargs)
+    else:
+        import dataclasses
+
+        fields = {f.name for f in dataclasses.fields(wl.AmorphousWorkloadConfig)}
+        cfg = {k: v for k, v in overrides.items() if k in fields}
+        # the other --set names go to run_amorphous_protocols and the dataset
+        rest = {k: v for k, v in overrides.items() if k not in fields}
+        config = _apply_config(wl.AmorphousWorkloadConfig, cfg) if cfg else None
+        result = wl.run_amorphous_protocols(args.seed, config=config, device=device,
+                                            render=render, **rest, **kwargs)
+    print(json.dumps(_json_safe(result)))
+    return 0
+
+
+def main(argv: Sequence[str] | None = None, device=None) -> int:
+    """``python -m dib_tpu_torch``; ``device`` (a Python argument, not a
+    flag) is where training runs, ``None`` meaning the GPU."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "workload":
+        return workload_main(argv[1:], device)
+    if argv and argv[0] in REFUSED_SUBCOMMANDS:
+        print(f"dib_tpu_torch: the {argv[0]!r} subcommand is not ported "
+              f"({REFUSED_SUBCOMMANDS[argv[0]]})", file=sys.stderr)
+        return 2
+    summary = run(build_parser().parse_args(argv), device=device)
+    print(json.dumps(summary))
+    if summary.get("status") == "preempted":
+        from dib_tpu_torch.train.preempt import PREEMPT_EXIT_CODE
+
+        return PREEMPT_EXIT_CODE
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

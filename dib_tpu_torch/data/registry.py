@@ -6,6 +6,7 @@ same data feeds both packages.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Sequence
 
@@ -42,6 +43,14 @@ class DatasetBundle:
             raise ValueError(
                 f"x_train width {self.x_train.shape[-1]} != sum(feature dims) {total}")
 
+    def as_vanilla_ib(self) -> "DatasetBundle":
+        """Every feature into one bottleneck (the CLI's ``--ib``): a copy
+        with a single feature as wide as all of them."""
+        out = copy.copy(self)
+        out.feature_dimensionalities = [int(np.sum(self.feature_dimensionalities))]
+        out.feature_labels = ["All features"]
+        return out
+
 
 _REGISTRY: Dict[str, Callable[..., DatasetBundle]] = {}
 
@@ -60,3 +69,10 @@ def get_dataset(name: str, **kwargs) -> DatasetBundle:
     if name not in _REGISTRY:
         raise KeyError(f"Unknown dataset {name!r}. Available: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)
+
+
+def available_datasets() -> list[str]:
+    """Every registered dataset (the package's modules registered)."""
+    import dib_tpu_torch.data  # noqa: F401  (registers every dataset)
+
+    return sorted(_REGISTRY)

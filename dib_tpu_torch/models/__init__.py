@@ -5,6 +5,7 @@ from dib_tpu_torch.models.dib import DistributedIBModel
 from dib_tpu_torch.models.encoders import (
     FeatureEncoderBank,
     GaussianEncoder,
+    YEncoder,
     pad_and_stack_features,
 )
 from dib_tpu_torch.models.mlp import MLP, Dense, resolve_activation

@@ -80,6 +80,12 @@ class FeatureEncoderBank(nn.Module):
     Input: [B, sum(feature_dimensionalities)] concatenated features.
     Output: (mus, logvars), each [F, B, embedding_dim] and contiguous.
     ``logvar_offset`` shifts the predicted log-variances after the split.
+
+    With ``replicas=R`` the bank is R banks (a sweep's members) run as one
+    stack of R x F encoders, member r's F encoders at rows r*F..(r+1)*F:
+    input [R, B, width], outputs [R, F, B, d]. A sequence of R CPU
+    generators gives member r the weights the bank without replicas draws
+    from the r-th.
     """
 
     def __init__(self, feature_dimensionalities: Sequence[int],
@@ -87,19 +93,22 @@ class FeatureEncoderBank(nn.Module):
                  num_posenc_frequencies: int = 4,
                  activation: str | Callable | None = "relu", logvar_offset: float = 0.0,
                  use_positional_encoding: bool = True,
-                 generator: torch.Generator | None = None, compute_dtype=None):
+                 generator: Generators = None, compute_dtype=None,
+                 replicas: int | None = None):
         super().__init__()
         self.feature_dimensionalities = tuple(int(d) for d in feature_dimensionalities)
         self.embedding_dim = embedding_dim
         self.logvar_offset = float(logvar_offset)
+        self.replicas = replicas
         nfreq = num_posenc_frequencies if use_positional_encoding else 0
         self.register_buffer(
             "frequencies",
             torch.from_numpy(positional_encoding_frequencies(nfreq)),
             persistent=False)
         max_dim = max(self.feature_dimensionalities)
+        features = len(self.feature_dimensionalities)
         self.mlp = MLP(posenc_output_dim(max_dim, nfreq), hidden, 2 * embedding_dim,
-                       activation, stack=len(self.feature_dimensionalities),
+                       activation, stack=features * (replicas or 1),
                        generator=generator, dtype=compute_dtype, output_dtype=torch.float32)
 
     def _split(self, out: torch.Tensor):
@@ -108,10 +117,46 @@ class FeatureEncoderBank(nn.Module):
 
     def forward(self, x: torch.Tensor):
         stacked = pad_and_stack_features(x, self.feature_dimensionalities)   # [F, B, maxd]
-        return self._split(self.mlp(positional_encoding(stacked, self.frequencies)))
+        if self.replicas is not None:       # [F, R, B, maxd] -> [R * F, B, maxd]
+            stacked = stacked.movedim(0, 1).flatten(0, 1)
+        out = self.mlp(positional_encoding(stacked, self.frequencies))
+        if self.replicas is not None:
+            out = out.unflatten(0, (self.replicas, -1))
+        return self._split(out)
 
     def encode_single(self, feature_index: int, x_feature: torch.Tensor):
-        """Run one feature's encoder on raw single-feature data [B, dim_i]."""
+        """Run one feature's encoder on raw single-feature data [B, dim_i]
+        ([R, B, dim_i], or [B, dim_i] for every member, with replicas)."""
         pad = max(self.feature_dimensionalities) - self.feature_dimensionalities[feature_index]
+        member = feature_index
+        if self.replicas is not None:
+            features = len(self.feature_dimensionalities)
+            member = [r * features + feature_index for r in range(self.replicas)]
+            if x_feature.dim() == 2:
+                x_feature = x_feature.expand(self.replicas, *x_feature.shape)
         h = positional_encoding(F.pad(x_feature, (0, pad)), self.frequencies)
-        return self._split(self.mlp(h, member=feature_index))
+        return self._split(self.mlp(h, member=member))
+
+
+class YEncoder(nn.Module):
+    """Deterministic output-side encoder for InfoNCE training: positional
+    encoding + MLP into the shared embedding space, its final layer float32
+    (counterpart of ``dib_tpu/models/encoders.py::YEncoder``; ``in_dim`` is
+    the width of y, which Flax infers)."""
+
+    def __init__(self, in_dim: int, hidden: Sequence[int] = (128, 128), shared_dim: int = 64,
+                 num_posenc_frequencies: int = 4, posenc_start_power: int = 1,
+                 activation: str | Callable | None = "relu", compute_dtype=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.register_buffer(
+            "frequencies",
+            torch.from_numpy(positional_encoding_frequencies(num_posenc_frequencies,
+                                                             posenc_start_power)),
+            persistent=False)
+        self.mlp = MLP(posenc_output_dim(in_dim, num_posenc_frequencies), hidden, shared_dim,
+                       activation, generator=generator, dtype=compute_dtype,
+                       output_dtype=torch.float32)
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        return self.mlp(positional_encoding(y, self.frequencies))

@@ -60,12 +60,36 @@ def _leaky_relu(x):
     return F.leaky_relu(x, negative_slope=_LEAKY_SLOPES.get(x.dtype, 0.1))
 
 
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """A weakly typed constant as Flax multiplies it: rounded to x's dtype."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _gelu(x):
+    """Flax's ``nn.gelu`` (the tanh approximation). In a 16-bit type it is
+    composed as ``jax.nn.gelu`` composes it, each operation rounding to that
+    type as XLA rounds it (x ** 3 as x * x * x)."""
+    if x.dtype.itemsize != 2:
+        return F.gelu(x, approximate="tanh")
+    c, k = _rounded(math.sqrt(2.0 / math.pi), x.dtype), _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def _sigmoid(x):
+    """``jax.nn.sigmoid``: XLA expands the logistic to 1 / (1 + exp(-x)),
+    which in a 16-bit type rounds after each operation."""
+    if x.dtype.itemsize != 2:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+# tanh is one operation in XLA too: computed in float32 and rounded once
 _ACTIVATIONS = {
     "relu": torch.relu,
     "leaky_relu": _leaky_relu,
     "tanh": torch.tanh,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),   # flax's nn.gelu default
-    "sigmoid": torch.sigmoid,
+    "gelu": _gelu,
+    "sigmoid": _sigmoid,
     "none": _identity,
     "linear": _identity,
 }
@@ -91,11 +115,14 @@ Generators = Union[torch.Generator, Sequence[torch.Generator], None]
 def lecun_normal_(tensor: torch.Tensor, fan_in: int,
                   generator: Generators = None) -> torch.Tensor:
     """Flax's ``lecun_normal``: truncated normal at +-2 std, variance 1/fan_in.
-    A sequence of generators fills ``tensor[r]`` from the r-th."""
+    A sequence of R generators splits the leading axis into R equal blocks
+    and fills the r-th from the r-th generator (a stack of R x F layers:
+    member r's F layers, drawn as the module without replicas draws them)."""
     if isinstance(generator, Sequence):
-        if len(generator) != tensor.shape[0]:
-            raise ValueError(f"{len(generator)} generators for {tensor.shape[0]} replicas")
-        for member, member_generator in zip(tensor, generator):
+        if not generator or tensor.shape[0] % len(generator):
+            raise ValueError(f"{len(generator)} generators for a stack of {tensor.shape[0]}")
+        for member, member_generator in zip(tensor.unflatten(0, (len(generator), -1)),
+                                            generator):
             lecun_normal_(member, fan_in, member_generator)
         return tensor
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978   # std of N(0,1) cut at +-2
@@ -118,9 +145,10 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(lead + (out_dim,)))
         lecun_normal_(self.kernel, in_dim, generator)
 
-    def forward(self, x: torch.Tensor, member: int | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, member: int | Sequence[int] | None = None) -> torch.Tensor:
         """[B, in] -> [B, out], or [F, ..., in] -> [F, ..., out] for a stack;
-        ``member`` applies one layer of the stack to [B, in]."""
+        ``member`` applies one layer of the stack to [B, in], or a list of K
+        layers to [K, B, in]."""
         kernel, bias = self.kernel, self.bias
         if member is not None:
             kernel, bias = kernel[member], bias[member]
@@ -165,8 +193,9 @@ class MLP(nn.Module):
         self.activation = resolve_activation(activation)
         self.output_activation = resolve_activation(output_activation)
 
-    def forward(self, x: torch.Tensor, member: int | None = None) -> torch.Tensor:
-        """Apply the stack; ``member`` selects one MLP of a bank for [B, in]."""
+    def forward(self, x: torch.Tensor, member: int | Sequence[int] | None = None) -> torch.Tensor:
+        """Apply the stack; ``member`` selects one MLP of a bank for [B, in]
+        (a list of K selects K of them for [K, B, in])."""
         *hidden, last = self.layers
         for layer in hidden:
             x = self.activation(layer(x, member))

@@ -136,3 +136,9 @@ class PerParticleDIBModel(nn.Module):
                                     replicas=None if single else len(index))
         model.load_state_dict({name: value[index] for name, value in self.state_dict().items()})
         return model
+
+    def member_values(self, name: str, value: torch.Tensor, members) -> torch.Tensor:
+        """Members ``members`` of a stacked tensor laid out like parameter
+        ``name`` (every leaf leads with R)."""
+        del name
+        return value[members]

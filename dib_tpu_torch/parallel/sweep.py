@@ -22,9 +22,11 @@ replays a serial ``DIBTrainer`` fed the same seed, to float tolerance.
 After every chunk the stacked boundary row is fetched once; members whose
 loss or KL is not finite are named, with their beta endpoints, in one
 warning, and the sweep continues (the JAX branch taken when no checkpoint
-exists). Not ported: the checkpoint rollback, replay and ejection, the
-anomaly detectors, meshes and the shard_map engine, telemetry, fault
-plans and preemption.
+exists). ``DIBCheckpointer`` saves and restores the stacked state with the
+R members' generators, and ``fit`` takes a ``PreemptionGuard``, as the
+serial trainer does. Not ported: the checkpoint rollback, replay and
+ejection, the anomaly detectors, meshes and the shard_map engine,
+telemetry and fault plans.
 """
 
 from __future__ import annotations
@@ -61,6 +63,13 @@ class StackedDraws:
     def __init__(self, members: Sequence):
         self.members = list(members)
 
+    @property
+    def generators(self) -> list[torch.Generator] | None:
+        """What a checkpoint saves to continue these draws (None unless
+        every member draws from a generator)."""
+        generators = [getattr(d, "generator", None) for d in self.members]
+        return None if any(g is None for g in generators) else generators
+
     def start_epoch(self, n: int, steps: int, batch_size: int, sampling: str) -> torch.Tensor:
         return torch.stack([d.start_epoch(n, steps, batch_size, sampling)
                             for d in self.members], dim=1)
@@ -79,8 +88,8 @@ class BetaSweepTrainer(DIBTrainer):
     after every chunk.
 
     Args:
-      model: a model built with ``replicas=R`` (``PerParticleDIBModel``;
-        ``DistributedIBModel`` has no replica axis yet). Its weights are
+      model: a model built with ``replicas=R`` (``PerParticleDIBModel``
+        or ``DistributedIBModel``). Its weights are
         the replicas' initial weights: build it from R CPU generators
         (``generator=[...]``) to give each member the weights of a serial
         model from the same seed.
@@ -101,7 +110,7 @@ class BetaSweepTrainer(DIBTrainer):
             raise ValueError(
                 f"the sweep has {self.num_replicas} beta endpoints and needs a model built with "
                 f"replicas={self.num_replicas}; got {type(model).__name__} with replicas="
-                f"{replicas} (DistributedIBModel's replica axis is not ported yet)")
+                f"{replicas}")
         super().__init__(model, bundle, config, device=device)
 
     def betas(self, epochs) -> torch.Tensor:
@@ -118,7 +127,8 @@ class BetaSweepTrainer(DIBTrainer):
         return self.betas(torch.arange(start, start + num_epochs))
 
     def _make_draws(self, generators, draws) -> StackedDraws:
-        members = [GeneratorDraws(g) for g in generators] if draws is None else list(draws)
+        members = ([GeneratorDraws(self.as_generator(g)) for g in generators] if draws is None
+                   else list(draws))
         if len(members) != self.num_replicas:
             raise ValueError(f"expected {self.num_replicas} generators or draws, "
                              f"got {len(members)}")
@@ -143,24 +153,29 @@ class BetaSweepTrainer(DIBTrainer):
     def fit(self, generators: Sequence[torch.Generator] | None = None,
             num_epochs: int | None = None, hooks: Sequence[Callable] = (), hook_every: int = 0,
             states: TrainState | None = None, histories: dict | None = None,
-            draws: Sequence | None = None) -> tuple[TrainState, list[HistoryRecord]]:
+            draws: Sequence | None = None,
+            preempt=None) -> tuple[TrainState, list[HistoryRecord]]:
         """``DIBTrainer.fit`` over the replicas: hooks are called as
         ``hook(sweep, states, epoch)``, draws come from R ``generators``
-        (one per replica, on the device) or from R ``draws`` objects with
-        ``GeneratorDraws``' methods. Returns the stacked states and one
-        ``HistoryRecord`` per replica; the stacked history stays in
-        ``latest_history``."""
+        (one per replica, on the device, or their saved states) or from R
+        ``draws`` objects with ``GeneratorDraws``' methods. Returns the
+        stacked states and one ``HistoryRecord`` per replica; the stacked
+        history stays in ``latest_history``."""
         self._warned = False
-        return super().fit(generators, num_epochs, hooks, hook_every, states, histories, draws)
+        return super().fit(generators, num_epochs, hooks, hook_every, states, histories, draws,
+                           preempt)
 
     # ------------------------------------------------------------ inspection
     def _carve(self, states: TrainState, members) -> TrainState:
         """Members of the stacked state as a state of their own: the model
         carved out, Adam's moments sliced, the schedule copied."""
-        model = states.params["model"].carve(members)
+        stacked = states.params["model"]
+        model = stacked.carve(members)
         optimizer, schedule = make_optimizer(self.config, model.parameters())
+        names = [name for name, _ in stacked.named_parameters()]
         saved = states.optimizer.state_dict()
-        saved["state"] = {i: {k: (v.clone() if k == "step" else v[members].clone())
+        saved["state"] = {i: {k: (v.clone() if k == "step" else
+                                  stacked.member_values(names[i], v, members).clone())
                               for k, v in slot.items()}
                           for i, slot in saved["state"].items()}
         optimizer.load_state_dict(saved)
@@ -215,13 +230,22 @@ class PerReplicaHook:
         self.make_hook = make_hook
         self.replica_hooks: dict[int, Callable] = {}
 
+    def _hook(self, r: int) -> Callable:
+        if r not in self.replica_hooks:
+            self.replica_hooks[r] = self.make_hook(r)
+        return self.replica_hooks[r]
+
+    def check(self, sweep: BetaSweepTrainer):
+        """Lets each replica's hook refuse what it cannot run, before any
+        epoch (``fit`` calls it)."""
+        for r in range(sweep.num_replicas):
+            if hasattr(self._hook(r), "check"):
+                self._hook(r).check(sweep.replica_trainer(r))
+
     def __call__(self, sweep: BetaSweepTrainer, states: TrainState, epoch: int):
         for r in range(sweep.num_replicas):
-            if r not in self.replica_hooks:
-                self.replica_hooks[r] = self.make_hook(r)
             state_r = sweep.replica_state(states, r)
-            self.replica_hooks[r](sweep.replica_trainer(r, state_r.params["model"]), state_r,
-                                  epoch)
+            self._hook(r)(sweep.replica_trainer(r, state_r.params["model"]), state_r, epoch)
 
 
 def sweep_records(histories: dict) -> list[HistoryRecord]:

@@ -25,6 +25,12 @@ from dib_tpu_torch.ops.density import MAX_GROUPS
 from dib_tpu_torch.ops.gaussian import reparameterize
 from dib_tpu_torch.ops.info_bounds import mi_sandwich_from_params
 from dib_tpu_torch.ops.schedules import log_annealed_beta
+from dib_tpu_torch.train.hooks import check_channel_width
+
+
+def call_seed(seed: int, call: int) -> int:
+    """The seed of a hook's ``call``-th measurement (0-based)."""
+    return int(np.random.SeedSequence([seed, call]).generate_state(1)[0])
 
 
 def sweep_features_bounds(model, rows: torch.Tensor, batch_size: int, num_batches: int,
@@ -62,10 +68,15 @@ class SweepInfoPerFeatureHook:
     Called as a sweep hook ``hook(sweep, states, epoch)``; accumulates
     ``records`` of ``{"epoch": int, "bounds": [R, F, 2] nats}`` from the
     validation rows. ``replica_view(r)`` gives a serial-hook-shaped view
-    (``.epochs``, ``.bounds_bits``). Draws come from a generator seeded with
-    ``seed`` on the model's device; ``draws`` (a callable ``(model, rows)
-    -> (idx, u)`` of :func:`sweep_features_bounds`' shapes, called once per
-    call) replaces them.
+    (``.epochs``, ``.bounds_bits``).
+
+    The n-th call (0-based, counting the records kept) draws from a
+    generator on the model's device seeded with ``call_seed(seed, n)``, as
+    the JAX hook derives the n-th call's key from its seed: the draws depend
+    on the call's index, not on the calls made before it in this process,
+    so a resumed run that measures an epoch again draws what the
+    uninterrupted run drew. ``draws`` (a callable ``(model, rows, n) ->
+    (idx, u)`` of :func:`sweep_features_bounds`' shapes) replaces them.
 
     ``persist``: a directory each record is mirrored to, as
     ``epoch{E}.npz``. Its records are read back only when the caller says
@@ -81,7 +92,6 @@ class SweepInfoPerFeatureHook:
         self.draws = draws
         self.persist = persist
         self.records: list[dict] = []
-        self._generator = None
         self._rows = None
         self._rows_for = None     # the bundle the uploaded rows came from
         if persist:
@@ -97,6 +107,11 @@ class SweepInfoPerFeatureHook:
                     self.records.append({"epoch": int(data["epoch"]),
                                          "bounds": np.asarray(data["bounds"])})
 
+    def check(self, sweep):
+        """Called by ``fit`` before its first epoch: refuses channels the
+        GPU's kernel does not take."""
+        check_channel_width(sweep.model.noise_shape(1)[-1], sweep.device)
+
     def __call__(self, sweep, states, epoch: int):
         model = sweep.model
         device = next(model.parameters()).device
@@ -105,14 +120,15 @@ class SweepInfoPerFeatureHook:
                                          device=device)
             self._rows_for = sweep.bundle
         self.records = [r for r in self.records if r["epoch"] < epoch]
-        idx = u = None
+        call = len(self.records)
+        idx = u = generator = None
         if self.draws is not None:
-            idx, u = self.draws(model, self._rows)
-        elif self._generator is None or self._generator.device != device:
-            self._generator = torch.Generator(device=device).manual_seed(self.seed)
+            idx, u = self.draws(model, self._rows, call)
+        else:
+            generator = torch.Generator(device=device).manual_seed(call_seed(self.seed, call))
         lower, upper = sweep_features_bounds(
             model, self._rows, self.evaluation_batch_size, self.number_evaluation_batches,
-            generator=self._generator, idx=idx, u=u)
+            generator=generator, idx=idx, u=u)
         bounds = torch.stack([lower, upper], dim=-1).cpu().numpy()     # [R, F, 2] nats
         self.records.append({"epoch": epoch, "bounds": bounds})
         if self.persist:

@@ -63,6 +63,28 @@ class InferenceEngine:
         model.load_state_dict(interop.params_from_flax(flax_params))
         return cls(model, **kwargs)
 
+    @classmethod
+    def from_checkpoint(cls, trainer, directory: str, replica: int | None = None,
+                        **kwargs) -> "InferenceEngine":
+        """Engine over the newest step of a ``DIBCheckpointer`` directory.
+
+        ``trainer`` gives the restore template (a ``DIBTrainer``, or a
+        ``BetaSweepTrainer`` with ``replica`` naming the member to serve);
+        its model receives the checkpoint's weights. The step's manifest is
+        verified inside ``restore``: an architecture mismatch fails naming
+        the differing leaves, a corrupt step raises
+        ``CheckpointCorruptionError``. ``kwargs`` go to the engine
+        (``batch_buckets``, ``device``; the trainer's device by default).
+        """
+        from dib_tpu_torch.train.checkpoint import DIBCheckpointer
+
+        state, _, _ = DIBCheckpointer(directory).restore(trainer)
+        model = state.params["model"]
+        if replica is not None:
+            model = model.carve(replica)
+        kwargs.setdefault("device", trainer.device)
+        return cls(model, **kwargs)
+
     # ------------------------------------------------------------- forward fns
     def _predict_fn(self, x: torch.Tensor) -> dict:
         prediction, aux = self.model(x, sample=False)

@@ -1,5 +1,11 @@
-"""Training: the trainer, its losses, history and hooks."""
+"""Training: the trainer, its losses, history, hooks, checkpoints and
+preemption."""
 
+from dib_tpu_torch.train.checkpoint import (
+    CheckpointCorruptionError,
+    CheckpointHook,
+    DIBCheckpointer,
+)
 from dib_tpu_torch.train.history import HistoryRecord, history_extend, history_init, history_record
 from dib_tpu_torch.train.hooks import (
     CompressionMatrixHook,
@@ -14,3 +20,4 @@ from dib_tpu_torch.train.loop import (
     TrainState,
     make_optimizer,
 )
+from dib_tpu_torch.train.preempt import PREEMPT_EXIT_CODE, PreemptionGuard, TrainingPreempted

@@ -13,6 +13,7 @@ import os
 import numpy as np
 import torch
 
+from dib_tpu_torch.ops.density import MAX_DIM
 from dib_tpu_torch.ops.gaussian import reparameterize
 from dib_tpu_torch.ops.info_bounds import mi_sandwich_from_params
 from dib_tpu_torch.ops.schedules import log_annealed_beta
@@ -48,6 +49,17 @@ def all_features_bounds(model, rows, batch_size: int = 1024, num_batches: int = 
     return torch.stack(lowers).mean(0), torch.stack(uppers).mean(0)
 
 
+def check_channel_width(d: int, device) -> None:
+    """Refuse channels wider than the GPU's MI kernel takes, on the GPU:
+    called before training, so a run does not die at its first hook."""
+    if torch.device(device).type == "cuda" and d > MAX_DIM:
+        raise ValueError(
+            f"the MI bounds run mi_row_stats, whose CUDA kernel takes channels of at most "
+            f"{MAX_DIM} dimensions (MAX_DIM); these channels have {d}. Use an embedding "
+            f"dimension of at most {MAX_DIM} (ROADMAP.md queue 2 gives the kernel wider "
+            "channels).")
+
+
 class Every:
     """Run ``hook`` only when the epoch is a multiple of ``cadence``, so hooks
     with different cadences share one ``fit(hook_every=...)`` chunking (pass
@@ -59,6 +71,10 @@ class Every:
 
     def fires_at(self, epoch: int) -> bool:
         return epoch % self.cadence == 0
+
+    def check(self, trainer):
+        if hasattr(self.hook, "check"):
+            self.hook.check(trainer)
 
     def __call__(self, trainer, state, epoch: int):
         if self.fires_at(epoch):
@@ -86,6 +102,11 @@ class InfoPerFeatureHook:
         self._generator = None
         self._rows = None
         self._rows_for = None     # the bundle the uploaded rows came from
+
+    def check(self, trainer):
+        """Called by ``fit`` before its first epoch: refuses channels the
+        GPU's kernel does not take."""
+        check_channel_width(trainer.model.noise_shape(1)[-1], trainer.device)
 
     def __call__(self, trainer, state, epoch: int):
         model = trainer.model

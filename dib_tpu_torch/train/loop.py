@@ -17,8 +17,11 @@ The loss core also trains a model with replicas (the beta sweep,
 history row has a leading replica axis, the task loss and metric are
 reduced per replica, and one backward pass takes the sum over replicas.
 
-Left out of ``fit`` for now: telemetry, fault plans, preemption, the
-divergence guard and its checkpoint rollback.
+``fit`` publishes what ``CheckpointHook`` saves (the generators that
+draw, the live history and the chunk size) and takes a
+``PreemptionGuard``; a resumed run passes the restored generator states.
+Left out of ``fit`` for now: telemetry, fault plans, the divergence guard
+and its checkpoint rollback.
 """
 
 from __future__ import annotations
@@ -80,14 +83,17 @@ class TrainState:
 
 
 def make_optimizer(config: TrainConfig, parameters):
-    """``optax.adam`` with an optional linear warmup from 0, as (optimizer,
-    per-update LR schedule). Like
+    """``optax.adam`` or ``optax.sgd`` (plain, no momentum) with an optional
+    linear warmup from 0, as (optimizer, per-update LR schedule). Like
     ``optax.linear_schedule(0, lr, warmup_steps)``, the first update uses a
     learning rate of 0."""
-    if config.optimizer != "adam":
-        raise ValueError(f"Unknown optimizer {config.optimizer!r} (the port has 'adam')")
-    optimizer = torch.optim.Adam(parameters, lr=config.learning_rate, betas=ADAM_BETAS,
-                                 eps=ADAM_EPS)
+    if config.optimizer == "adam":
+        optimizer = torch.optim.Adam(parameters, lr=config.learning_rate, betas=ADAM_BETAS,
+                                     eps=ADAM_EPS)
+    elif config.optimizer == "sgd":
+        optimizer = torch.optim.SGD(parameters, lr=config.learning_rate)
+    else:
+        raise ValueError(f"Unknown optimizer {config.optimizer!r}")
     warmup = config.warmup_steps
     factor = (lambda update: min(update / warmup, 1.0)) if warmup > 0 else (lambda update: 1.0)
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
@@ -103,6 +109,11 @@ class GeneratorDraws:
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
+
+    @property
+    def generators(self) -> list[torch.Generator]:
+        """What a checkpoint saves to continue these draws."""
+        return [self.generator]
 
     def start_epoch(self, n: int, steps: int, batch_size: int, sampling: str) -> torch.Tensor:
         """[steps, batch_size] row indices into the training data."""
@@ -278,7 +289,16 @@ class DIBTrainer:
 
     def _make_draws(self, generator, draws):
         """The draws object ``fit`` trains from."""
-        return GeneratorDraws(generator) if draws is None else draws
+        return GeneratorDraws(self.as_generator(generator)) if draws is None else draws
+
+    def as_generator(self, generator) -> torch.Generator:
+        """A generator on the trainer's device: ``generator`` itself, or one
+        set to a saved state (the uint8 tensor a checkpoint restores)."""
+        if isinstance(generator, torch.Generator):
+            return generator
+        restored = torch.Generator(device=self.device)
+        restored.set_state(torch.as_tensor(generator, dtype=torch.uint8).cpu())
+        return restored
 
     def _after_chunk(self, state: TrainState, history: dict):
         """Runs after every chunk, before the hooks; a sweep checks its
@@ -292,16 +312,28 @@ class DIBTrainer:
     def fit(self, generator: torch.Generator | None = None, num_epochs: int | None = None,
             hooks: Sequence[Callable] = (), hook_every: int = 0,
             state: TrainState | None = None, history: dict | None = None,
-            draws=None) -> tuple[TrainState, HistoryRecord]:
+            draws=None, preempt=None) -> tuple[TrainState, HistoryRecord]:
         """Train in chunks of ``hook_every`` epochs (0: one chunk, no hooks),
         calling each hook as ``hook(trainer, state, epoch)`` after a chunk.
 
-        Draws come from ``generator`` (on the trainer's device) or from a
-        ``draws`` object with :class:`GeneratorDraws`'s methods; give one of
-        the two. A resumed run passes both ``state`` and ``history``.
+        Draws come from ``generator`` (on the trainer's device, or a saved
+        generator state, which continues that stream) or from a ``draws``
+        object with :class:`GeneratorDraws`'s methods; give one of the two.
+        A resumed run passes both ``state`` and ``history`` too.
+
+        Before its hooks run, each chunk publishes ``resume_generators``,
+        ``latest_history`` and ``resume_chunk`` for ``CheckpointHook``.
+        ``preempt`` (a :class:`~dib_tpu_torch.train.preempt.PreemptionGuard`)
+        is checked before each chunk, as the JAX package's fit checks it: a
+        pending SIGTERM/SIGINT writes a final chunk-aligned checkpoint
+        through the hooks' checkpointer (unless they just wrote it) and
+        raises ``TrainingPreempted``.
         """
         if (generator is None) == (draws is None):
             raise ValueError("give exactly one of generator and draws")
+        for hook in hooks:          # hooks refuse what they cannot run before any epoch
+            if hasattr(hook, "check"):
+                hook.check(self)
         draws = self._make_draws(generator, draws)
         num_epochs = self.config.num_epochs if num_epochs is None else num_epochs
         if (state is None) != (history is None):
@@ -315,12 +347,20 @@ class DIBTrainer:
                 f"and {num_epochs} more were requested; grow it with "
                 "history_extend(history, n) or train fewer epochs.")
         chunk = hook_every if hook_every else num_epochs
+        generators = getattr(draws, "generators", None)
         done = 0
         while done < num_epochs:
+            if preempt is not None and preempt.requested:
+                from dib_tpu_torch.train.preempt import chunk_aligned_preempt_exit
+
+                chunk_aligned_preempt_exit(preempt, hooks, state, history, generators,
+                                           chunk)
             this_chunk = min(chunk, num_epochs - done)
             state, history = self.run_chunk(state, history, draws, this_chunk)
             done += this_chunk
             self._after_chunk(state, history)
+            self.resume_generators, self.latest_history, self.resume_chunk = (
+                generators, history, chunk)
             for hook in hooks:
                 hook(self, state, state.epoch)
         return state, self._records(history)

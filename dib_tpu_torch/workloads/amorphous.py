@@ -19,9 +19,9 @@ linear LR warmup, and:
 :func:`run_amorphous_workload` is the single-schedule driver,
 :func:`run_amorphous_protocols` its loop over quench protocols and
 :func:`run_amorphous_sweep` the north-star run, the whole configuration
-swept over a grid of beta endpoints as one stacked program. Not ported
-yet: the probe grid sharded over a device mesh (``probe_mesh``), the
-sweep's mesh and checkpointing.
+swept over a grid of beta endpoints as one stacked program, which
+checkpoints and resumes with ``checkpoint_dir``. Not ported yet: the probe
+grid sharded over a device mesh (``probe_mesh``) and the sweep's mesh.
 """
 
 from __future__ import annotations
@@ -301,8 +301,9 @@ def run_amorphous_sweep(seed: int = 0, config: AmorphousWorkloadConfig | None = 
                         beta_ends: Sequence[float] | None = None, num_repeats: int = 1,
                         outdir: str = "./amorphous_sweep_out", steps_per_epoch: int = 50,
                         model_overrides: dict | None = None, hooks: Sequence[Callable] = (),
-                        chunk_epochs: int = 25, *, device=None, render: bool = True,
-                        data_seed: int = 0, **fetch_kwargs) -> dict:
+                        chunk_epochs: int = 25, checkpoint_dir: str | None = None, *,
+                        device=None, render: bool = True, data_seed: int = 0,
+                        **fetch_kwargs) -> dict:
     """The north-star run: the full set-transformer configuration swept over
     a grid of beta endpoints (x seed repeats) as one stacked program on one
     device (``None`` means the GPU).
@@ -316,12 +317,19 @@ def run_amorphous_sweep(seed: int = 0, config: AmorphousWorkloadConfig | None = 
     matplotlib). ``data_seed`` and ``fetch_kwargs`` go to the
     ``amorphous_particles`` dataset.
 
+    ``checkpoint_dir``: a checkpoint of the stacked state and the members'
+    generators is saved at every chunk boundary (after the other hooks),
+    and when the directory already holds one the run resumes from it on the
+    same chunk grid, bit for bit the run it continues. A
+    ``SweepInfoPerFeatureHook`` resumes its records from its ``persist``
+    directory (``resume=True``).
+
     Returns the JAX driver's keys that apply: ``states`` (stacked),
     ``records`` (one ``HistoryRecord`` per member, nats), ``beta_ends`` [R],
     ``wall_clock_s`` (``fit`` on the host clock, after a device
-    synchronise), ``entropy_y_bits`` and ``info_plane_paths`` (empty when
-    ``render`` is off). The JAX driver's ``mesh``, ``use_mesh`` and
-    ``checkpoint_dir`` are not ported.
+    synchronise), ``entropy_y_bits``, ``info_plane_paths`` (empty when
+    ``render`` is off) and ``resumed_from_epoch`` (None for a fresh run).
+    The JAX driver's ``mesh`` and ``use_mesh`` are not ported.
     """
     device = resolve_device(device)
     config = config or AmorphousWorkloadConfig()
@@ -336,10 +344,23 @@ def run_amorphous_sweep(seed: int = 0, config: AmorphousWorkloadConfig | None = 
     sweep = BetaSweepTrainer(model, bundle, config.train_config(steps_per_epoch),
                              config.beta_start, ends, device=device)
     generators = [torch.Generator(device=device).manual_seed(s) for s in seeds]
+    hooks = list(hooks)
+    states = histories = remaining = resumed_from = None
+    if checkpoint_dir:
+        from dib_tpu_torch.train.checkpoint import CheckpointHook, DIBCheckpointer
+
+        ckpt = DIBCheckpointer(checkpoint_dir)
+        # last: a checkpoint is written once the other hooks' records are
+        hooks.append(CheckpointHook(ckpt))
+        if ckpt.latest_step is not None:
+            states, histories, generators = ckpt.restore(sweep, chunk_size=chunk_epochs)
+            resumed_from = states.epoch
+            remaining = max(sweep.config.num_epochs - resumed_from, 0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    states, records = sweep.fit(generators, hooks=hooks, hook_every=chunk_epochs)
+    states, records = sweep.fit(generators, remaining, hooks=hooks, hook_every=chunk_epochs,
+                                states=states, histories=histories)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall_s = time.perf_counter() - t0
@@ -360,6 +381,7 @@ def run_amorphous_sweep(seed: int = 0, config: AmorphousWorkloadConfig | None = 
         "wall_clock_s": wall_s,
         "entropy_y_bits": entropy_y,
         "info_plane_paths": paths,
+        "resumed_from_epoch": resumed_from,
     }
 
 

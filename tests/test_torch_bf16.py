@@ -151,6 +151,12 @@ def _port_grads(model) -> dict:
 @pytest.mark.parametrize("stack,activation,output_dtype", [
     (None, "leaky_relu", None),
     (3, "relu", "float32"),         # a sweep's stack, the encoders' float32 output layer
+    # the CLI's --activation_fn: each rounds where XLA rounds (gelu and
+    # sigmoid after each of their operations)
+    (None, "gelu", None),
+    (None, "tanh", None),
+    (None, "sigmoid", None),
+    (3, "gelu", "float32"),
 ])
 def test_mlp_bf16_matches_flax(stack, activation, output_dtype):
     rng = np.random.default_rng(30)
@@ -172,7 +178,7 @@ def test_mlp_bf16_matches_flax(stack, activation, output_dtype):
         def apply(p, x, flax_mlp=flax_mlp):
             return flax_mlp.apply({"params": p}, x)
 
-        want[dtype] = _compiled(f"mlp {stack} {dtype}", apply if stack is None
+        want[dtype] = _compiled(f"mlp {stack} {activation} {dtype}", apply if stack is None
                                 else jax.vmap(apply), params, jnp.asarray(h))
     assert want[BF16].dtype == (jnp.float32 if output_dtype else jnp.bfloat16)
     _hold("MLP", got, want[BF16], want[None])

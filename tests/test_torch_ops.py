@@ -95,3 +95,13 @@ def test_boolean_circuit_bundle_matches_jax(kwargs):
     assert got.extras["entropy_y_bits"] == pytest.approx(want.extras["entropy_y_bits"], abs=1e-12)
     with pytest.raises(KeyError, match="Unknown dataset"):
         get_dataset("boolean_circut")
+
+
+def test_as_vanilla_ib_equals_the_jax_bundle():
+    got, want = get_dataset("boolean_circuit").as_vanilla_ib(), \
+        jax_get_dataset("boolean_circuit").as_vanilla_ib()
+    assert got.feature_dimensionalities == want.feature_dimensionalities == [10]
+    assert got.feature_labels == want.feature_labels == ["All features"]
+    for name in ("x_train", "y_train", "x_valid", "y_valid"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    assert got.number_features == 1 and get_dataset("boolean_circuit").number_features == 10

@@ -9,8 +9,12 @@ leaf's norm, with the attention key-bias exception of
 ``test_torch_train.py`` (its gradient is zero in exact arithmetic), and
 history rows to 1e-5. The sweep's MI hook replays the JAX hook's key chain
 to 1e-5 nats, with one ``mi_row_stats`` call per evaluation batch over all
-R x P channels. The stacked forward equals R serial models to 1e-6, and a
-sweep of one replica a serial ``DIBTrainer`` on the same draws to 1e-5.
+R x P channels, on a resumed run too. The stacked forward equals R serial
+models to 1e-6, and a sweep of one replica a serial ``DIBTrainer`` on the
+same draws to 1e-5. The same holds for ``DistributedIBModel(replicas=R)``,
+the boolean model of the CLI's sweep: its stacked forward against R serial
+models, and a sweep of three replicas against the JAX sweep on the boolean
+circuit.
 """
 
 import dataclasses
@@ -23,6 +27,7 @@ import pytest
 import torch
 
 from dib_tpu.data import get_dataset as jax_get_dataset
+from dib_tpu.models import DistributedIBModel as JaxDIB
 from dib_tpu.models.per_particle import PerParticleDIBModel as JaxPerParticle
 from dib_tpu.parallel.sweep import BetaSweepTrainer as JaxSweep
 from dib_tpu.parallel.sweep_hooks import SweepInfoPerFeatureHook as JaxSweepHook
@@ -31,7 +36,7 @@ from dib_tpu.train.loop import TrainConfig as JaxTrainConfig
 from dib_tpu.train.loop import TrainState as JaxTrainState
 from dib_tpu_torch import interop
 from dib_tpu_torch.data import get_dataset
-from dib_tpu_torch.models import PerParticleDIBModel
+from dib_tpu_torch.models import DistributedIBModel, PerParticleDIBModel
 from dib_tpu_torch.ops import info_bounds
 from dib_tpu_torch.ops.schedules import log_annealed_beta
 from dib_tpu_torch.parallel import (
@@ -87,16 +92,19 @@ def _hold_params(got: dict, want: dict, member=None):
 
 
 class JaxHookReplay:
-    """The draws of ``dib_tpu``'s ``SweepInfoPerFeatureHook(seed=...)``: per
-    call a key from its split chain, split over replicas, then per replica
-    ``all_features_bounds_kernel``'s batch indices and per-channel noise.
-    u is formed from the port model's channel parameters."""
+    """The draws of ``dib_tpu``'s ``SweepInfoPerFeatureHook(seed=...)``: the
+    n-th call's key from its split chain (``_key_for_call``), split over
+    replicas, then per replica ``all_features_bounds_kernel``'s batch
+    indices and per-channel noise. u is formed from the port model's
+    channel parameters."""
 
     def __init__(self, seed):
         self.key = jax.random.key(seed)
 
-    def __call__(self, model, rows):
-        self.key, k_call = jax.random.split(self.key)
+    def __call__(self, model, rows, call):
+        k = self.key
+        for _ in range(call + 1):
+            k, k_call = jax.random.split(k)
         idx, eps = [], []
         for k_replica in jax.random.split(k_call, R):
             idx_r, eps_r = [], []
@@ -315,6 +323,37 @@ def test_persist_reads_old_records_only_on_resume(tmp_path, bundle):
     assert (resumed.records[0]["bounds"] == 7.0).all()
 
 
+def test_resumed_sweep_hook_replays_the_jax_hook(tmp_path, bundle, jax_run, port_run):
+    """(i) A hook resumed from its persisted records draws its next call by
+    the call's index: replaying the JAX hook's key chain, its measurement at
+    epoch 2 is the JAX hook's second call, to 1e-5 nats. With seeded draws,
+    a resumed hook's measurement equals the uninterrupted hook's bit for
+    bit, and differs from a fresh hook's first call."""
+    sweep = BetaSweepTrainer(port_run["model"], bundle, TrainConfig(**SETTINGS),
+                             SETTINGS["beta_start"], ENDS, device="cpu")
+    states = port_run["states"]
+    np.savez(tmp_path / "epoch1.npz", epoch=1, bounds=port_run["hook"].records[0]["bounds"])
+    resumed = SweepInfoPerFeatureHook(HOOK_BATCH, HOOK_BATCHES, draws=JaxHookReplay(HOOK_SEED),
+                                      persist=str(tmp_path), resume=True)
+    resumed(sweep, states, 2)
+    assert list(resumed.epochs) == [1, 2]
+    np.testing.assert_allclose(resumed.records[1]["bounds"], jax_run["hook"].records[1]["bounds"],
+                               rtol=TOL, atol=TOL)
+
+    whole = SweepInfoPerFeatureHook(HOOK_BATCH, 1, seed=HOOK_SEED)
+    first = SweepInfoPerFeatureHook(HOOK_BATCH, 1, seed=HOOK_SEED, persist=str(tmp_path / "p"))
+    for epoch in (1, 2):
+        whole(sweep, states, epoch)
+    first(sweep, states, 1)
+    again = SweepInfoPerFeatureHook(HOOK_BATCH, 1, seed=HOOK_SEED, persist=str(tmp_path / "p"),
+                                    resume=True)
+    again(sweep, states, 2)
+    np.testing.assert_array_equal(again.records[1]["bounds"], whole.records[1]["bounds"])
+    fresh = SweepInfoPerFeatureHook(HOOK_BATCH, 1, seed=HOOK_SEED)
+    fresh(sweep, states, 2)
+    assert not np.array_equal(fresh.records[0]["bounds"], whole.records[1]["bounds"])
+
+
 def test_sweep_driver_follows_each_endpoint():
     """(g) A tiny ``run_amorphous_sweep`` on the CPU: one record per member,
     its beta row on its own endpoint's ramp."""
@@ -375,3 +414,84 @@ def test_sweep_refuses_a_model_without_its_replica_axis(bundle):
         sweep.fit()
     with pytest.raises(ValueError, match="expected 3"):
         sweep.fit(_generators(SEEDS[:2]))
+
+
+# ------------------------------------------- DistributedIBModel(replicas=R)
+# The boolean model of the CLI's sweep: its encoder bank is one stack of
+# R x F encoders, which the stacked interop maps to the JAX tree's [R, F].
+
+DIB_SETTINGS = dict(learning_rate=1e-3, batch_size=8, beta_start=1e-3, beta_end=1e-1,
+                    num_pretraining_epochs=0, num_annealing_epochs=2, steps_per_epoch=3,
+                    warmup_steps=2, max_val_points=64)
+DIB_ENDS = (1e-2, 1e-1, 1.0)
+
+
+def _stacked_dib(dims, seeds):
+    return DistributedIBModel(dims, (8,), (16,), 1, 4, device="cpu", replicas=len(seeds),
+                              generator=[torch.Generator().manual_seed(s) for s in seeds])
+
+
+def test_stacked_dib_equals_serial_models():
+    """Replica r of a model built from R generators holds the weights of the
+    serial model from the r-th and computes what it computes (1e-6);
+    ``carve`` takes members out."""
+    dims = (1,) * 10
+    seeds = [member_seed(0, r) for r in range(3)]
+    stacked = _stacked_dib(dims, seeds)
+    rng = np.random.default_rng(43)
+    x = torch.from_numpy(rng.choice([-1.0, 1.0], size=(3, 5, 10)).astype(np.float32))
+    eps = torch.from_numpy(rng.standard_normal((3, 10, 5, 4)).astype(np.float32))
+    assert stacked.noise_shape(5) == (3, 10, 5, 4)
+    prediction, aux = stacked(x, eps=eps)
+    for r, seed in enumerate(seeds):
+        serial = DistributedIBModel(dims, (8,), (16,), 1, 4, device="cpu",
+                                    generator=torch.Generator().manual_seed(seed))
+        for name, value in stacked.carve(r).state_dict().items():
+            assert torch.equal(value, serial.state_dict()[name]), name
+        want, want_aux = serial(x[r], eps=eps[r])
+        torch.testing.assert_close(prediction[r], want, rtol=1e-6, atol=1e-6)
+        for key in ("kl_per_feature", "mus", "logvars", "embeddings"):
+            torch.testing.assert_close(aux[key][r], want_aux[key], rtol=1e-6, atol=1e-6)
+        mus, _ = stacked.encode_feature(3, x[:, :, 3:4])
+        torch.testing.assert_close(mus[r], serial.encode_feature(3, x[r, :, 3:4])[0],
+                                   rtol=1e-6, atol=1e-6)
+    pair = stacked.carve([2, 0])
+    assert pair.replicas == 2
+    assert torch.equal(pair.state_dict()["encoders.mlp.layers.0.kernel"][:10],
+                       stacked.state_dict()["encoders.mlp.layers.0.kernel"][20:])
+
+
+def test_dib_sweep_replays_the_jax_sweep():
+    """Three replicas x 2 epochs x 3 steps in one chunk against the JAX vmap
+    sweep, resumed from the port's stacked initial weights through the
+    stacked interop, each port replica fed its JAX key chain."""
+    jax_bundle, bundle = jax_get_dataset("boolean_circuit"), get_dataset("boolean_circuit")
+    dims = tuple(bundle.feature_dimensionalities)
+    model = _stacked_dib(dims, [member_seed(0, r) for r in range(3)])
+    init = {"model": interop.params_to_flax(model)}
+    assert init["model"]["params"]["encoders"]["VmapGaussianEncoder_0"]["MLP_0"]["Dense_0"][
+        "kernel"].shape[:2] == (3, 10)
+    jax_sweep = JaxSweep(JaxDIB(feature_dimensionalities=dims, encoder_hidden=(8,),
+                                integration_hidden=(16,), output_dim=1, embedding_dim=4),
+                         jax_bundle, JaxTrainConfig(**DIB_SETTINGS), 1e-3, DIB_ENDS)
+    states = JaxTrainState(init, jax.vmap(jax_sweep.base.optimizer.init)(init),
+                           jnp.zeros(3, jnp.int32))
+    histories = jax.vmap(lambda _: jax_history_init(2, 10))(jnp.arange(3))
+    keys = jax.random.split(jax.random.key(12), 3)
+    jax_states, jax_records = jax_sweep.fit(keys, states=states, histories=histories)
+
+    sweep = BetaSweepTrainer(model, bundle, TrainConfig(**DIB_SETTINGS), 1e-3, DIB_ENDS,
+                             device="cpu")
+    _, records = sweep.fit(draws=[JaxKeyReplay(keys[r], 2, 0) for r in range(3)])
+    want = interop.params_from_flax(jax.device_get(jax_states.params["model"]))
+    got = model.state_dict()
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        for r in range(3):
+            g, wr = model.member_values(name, got[name], r), model.member_values(name, w, r)
+            err = (g - wr).norm().item()
+            assert err <= TOL * wr.norm().item() + 1e-8, (name, r, err)
+    for got_r, want_r in zip(records, jax_records):
+        for name in HISTORY:
+            np.testing.assert_allclose(getattr(got_r, name), getattr(want_r, name),
+                                       rtol=TOL, atol=TOL, err_msg=name)

@@ -168,6 +168,54 @@ def test_trainer_replays_the_jax_trainer(particles_bundle, kind, sampling):
                                    rtol=TOL, atol=TOL, err_msg=name)
 
 
+def test_preemption_stops_where_the_jax_fit_stops():
+    """Both fits check for a pending preemption before each chunk: a notice
+    pending before the first chunk stops both at epoch 0 before any
+    training (the JAX fit raises before it compiles a chunk); in the port,
+    one that arrives at a chunk boundary stops the fit there, and one that
+    arrives after the last chunk lets it complete, as the JAX loop, which
+    checks nowhere else, does."""
+    from dib_tpu.train.preempt import PreemptionGuard as JaxGuard
+    from dib_tpu.train.preempt import TrainingPreempted as JaxPreempted
+    from dib_tpu_torch.train.preempt import PreemptionGuard, TrainingPreempted
+
+    bundle = get_dataset("boolean_circuit")
+    settings = dict(batch_size=8, num_pretraining_epochs=1, num_annealing_epochs=2,
+                    steps_per_epoch=1, max_val_points=64)
+
+    def stop_epoch(fit, guard_type, preempted_type, notice_at):
+        with guard_type(grace_s=600.0) as guard:
+            if notice_at is None:
+                guard.request()
+
+            def notice(trainer, state, epoch):
+                if epoch == notice_at:
+                    guard.request()
+
+            try:
+                fit(guard, notice)
+            except preempted_type as exc:
+                return exc.epoch
+        return "completed"
+
+    jax_bundle = jax_get_dataset("boolean_circuit")
+    jax_model, model = _models("dib", bundle)
+    jax_trainer = JaxTrainer(jax_model, jax_bundle, JaxTrainConfig(**settings))
+    init = {"model": interop.params_to_flax(model)}
+    jax_state = JaxTrainState(init, jax_trainer.optimizer.init(init), jnp.zeros((), jnp.int32))
+    stops = [stop_epoch(lambda guard, hook: jax_trainer.fit(
+        jax.random.key(0), hooks=[hook], hook_every=1, state=jax_state,
+        history=jax_history_init(3, jax_bundle.number_features), preempt=guard),
+        JaxGuard, JaxPreempted, None)]
+    for notice_at in (None, 1, 3):
+        trainer = DIBTrainer(_models("dib", bundle)[1], bundle, TrainConfig(**settings),
+                             device="cpu")
+        stops.append(stop_epoch(lambda guard, hook: trainer.fit(
+            torch.Generator().manual_seed(0), hooks=[hook], hook_every=1, preempt=guard),
+            PreemptionGuard, TrainingPreempted, notice_at))
+    assert stops == [0, 0, 1, "completed"]
+
+
 def test_adam_with_warmup_matches_optax():
     """``make_optimizer`` is ``optax.adam`` under ``optax.linear_schedule(0,
     lr, warmup)``: the first update uses a learning rate of 0."""
@@ -388,5 +436,7 @@ def test_trainer_refuses_to_fall_back(monkeypatch, particles_bundle):
         DIBTrainer(model, particles_bundle, config)
     adam, schedule = make_optimizer(config, model.parameters())
     assert isinstance(adam, torch.optim.Adam) and schedule.get_last_lr() == [config.learning_rate]
+    sgd, _ = make_optimizer(dataclasses.replace(config, optimizer="sgd"), model.parameters())
+    assert isinstance(sgd, torch.optim.SGD)
     with pytest.raises(ValueError, match="optimizer"):
-        make_optimizer(dataclasses.replace(config, optimizer="sgd"), model.parameters())
+        make_optimizer(dataclasses.replace(config, optimizer="rmsprop"), model.parameters())
