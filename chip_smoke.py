@@ -8,7 +8,8 @@ CUDA toolkit:
 
 Phases (any failure exits nonzero; nothing is caught and continued):
 
-  1. print the card's name and power limit; switch TF32 off
+  1. print the card's name and power limit, and whether ``tensorstore``
+     imports; switch TF32 off
   2. build every CUDA kernel from ``dib_tpu_torch/csrc`` (one nvcc per
      source, all started together); print each kernel's registers, and
      fail unless the density kernels show no stack and no spills
@@ -92,8 +93,27 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      the step before restored; (f) checkpoint save and restore times (the
      north star's stacked state and (a)'s), each CLI run's wall time and
      the boolean step, serial and 8 replicas
- 13. one JSON line listing each ported kernel
- 14. the last line: ``{"ok": true, "device": {...}}``
+ 13. main path 8, HTTP serving: ``python -m dib_tpu_torch serve`` over
+     phase 12's serial and 8-replica checkpoints, four processes started
+     together: (a) one process: 200 concurrent predicts and encodes of 1 to
+     300 rows (past the top bucket of 128), each held to
+     ``InferenceEngine.from_checkpoint`` at 1e-6; wrong width and
+     non-finite 400, unknown model and route 404; ``/healthz``,
+     ``/v1/models``, ``/metrics`` as JSON and Prometheus text; (b) the sweep
+     with ``--sweep_beta_ends``: each β routed to the member nearest in
+     log-β and held to that member's carved engine; ``--quota_rps`` gives
+     429, ``--admission_limit`` 503, both with ``Retry-After``, and
+     ``--response_cache`` a hit marked ``cached``; (c) ``--workers 2`` on
+     the card: one worker SIGKILLed mid-service, every call 200, the probe
+     respawns it; (d) ``--prefork 2``: both pids serve, ``serve top --once``
+     renders the fleet; host-clock timings (requests per second for each,
+     latency p50/p99 for 1 and 8 rows at concurrency 1 and 32 beside the
+     direct ``engine.predict``); the kernel launch counts that each serving
+     process publishes on ``/metrics``, read before SIGTERM (the pool's
+     engine subprocesses publish none); SIGTERM ends each with exit 0, the
+     single process's summary counting every request it served
+ 14. one JSON line listing each ported kernel
+ 15. the last line: ``{"ok": true, "device": {...}}``
 
 Without a CUDA device it exits nonzero before printing any result.
 """
@@ -109,6 +129,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -1992,13 +2013,12 @@ def time_boolean_steps(card):
     return ms
 
 
-def drive_cli(card, sweep_run):
-    """Phase 12: (a) the serial CLI with a resume, (b) the README's sweep
-    command with a resume and replicas 0 and 7 held to serial runs, (c) the
-    amorphous sweep driver with a resume, (d) serving a checkpoint, (e) a
-    corrupt step, (f) timings."""
-    import tempfile
-
+def drive_cli(card, sweep_run, tmp):
+    """Phase 12, in the directory ``tmp``: (a) the serial CLI with a resume,
+    (b) the README's sweep command with a resume and replicas 0 and 7 held to
+    serial runs, (c) the amorphous sweep driver with a resume, (d) serving a
+    checkpoint, (e) a corrupt step, (f) timings. Phase 13 serves (a)'s and
+    (b)'s checkpoints."""
     from dib_tpu_torch import cli
 
     args = cli.build_parser().parse_args(cli_argv("unused", "unused"))
@@ -2011,35 +2031,578 @@ def drive_cli(card, sweep_run):
     print(f"CLI: python -m dib_tpu_torch train at its defaults (boolean_circuit, "
           f"DistributedIBModel of {n_params} parameters, batch {args.batch_size}, 8 steps per "
           f"epoch, MI hook 1024 x 8); cut: {' '.join(CLI_CUTS)}")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        serial = cli_resume("serial", tmp, [], ["history.npz"], 3)
-        with np.load(os.path.join(tmp, "serial_run", "info_bounds.npz")) as bounds:
-            if bounds["epochs"].tolist() != [4, 8, 12] or \
-                    int(bounds["resumed_from_epoch"]) != serial["resumed_from"] or \
-                    not np.isfinite(bounds["bounds_bits"]).all():
-                fail(f"CLI serial: the resumed run's info_bounds.npz holds epochs "
-                     f"{bounds['epochs'].tolist()} spliced at {int(bounds['resumed_from_epoch'])}"
-                     f", expected [4, 8, 12] spliced at {serial['resumed_from']}")
-        sweep = cli_resume("sweep", tmp, CLI_SWEEP,
-                           [f"history_replica{r}.npz" for r in range(8)], 3 * 8)
-        for r in range(8):
-            with np.load(os.path.join(sweep["whole"], f"history_replica{r}.npz")) as hist:
-                if any(not np.isfinite(hist[k]).all() for k in hist.files):
-                    fail(f"CLI sweep: replica {r} is not finite")
-        print(f"CLI sweep: 8 replicas, endpoints {sweep['summary']['beta_ends']}, all finite; "
-              f"{hold_cli_replicas(tmp, sweep)}")
-        amorphous_launches = resume_amorphous_sweep(tmp, sweep_run)
-        serve_err = serve_checkpoint(serial)
-        quarantine_corrupt_step(tmp, serial)
-        for label, run in (("serial", serial), ("sweep", sweep)):
-            print(f"timing [{card}] CLI {label} wall (host clock, s): " + json.dumps(
-                {k: round(v, 3) for k, v in run["wall_s"].items()}))
-        checkpoint_ms = time_checkpoints(card, tmp, sweep_run, serial["whole_ckpt"])
+    serial = cli_resume("serial", tmp, [], ["history.npz"], 3)
+    with np.load(os.path.join(tmp, "serial_run", "info_bounds.npz")) as bounds:
+        if bounds["epochs"].tolist() != [4, 8, 12] or \
+                int(bounds["resumed_from_epoch"]) != serial["resumed_from"] or \
+                not np.isfinite(bounds["bounds_bits"]).all():
+            fail(f"CLI serial: the resumed run's info_bounds.npz holds epochs "
+                 f"{bounds['epochs'].tolist()} spliced at {int(bounds['resumed_from_epoch'])}"
+                 f", expected [4, 8, 12] spliced at {serial['resumed_from']}")
+    sweep = cli_resume("sweep", tmp, CLI_SWEEP,
+                       [f"history_replica{r}.npz" for r in range(8)], 3 * 8)
+    for r in range(8):
+        with np.load(os.path.join(sweep["whole"], f"history_replica{r}.npz")) as hist:
+            if any(not np.isfinite(hist[k]).all() for k in hist.files):
+                fail(f"CLI sweep: replica {r} is not finite")
+    print(f"CLI sweep: 8 replicas, endpoints {sweep['summary']['beta_ends']}, all finite; "
+          f"{hold_cli_replicas(tmp, sweep)}")
+    amorphous_launches = resume_amorphous_sweep(tmp, sweep_run)
+    serve_err = serve_checkpoint(serial)
+    quarantine_corrupt_step(tmp, serial)
+    for label, run in (("serial", serial), ("sweep", sweep)):
+        print(f"timing [{card}] CLI {label} wall (host clock, s): " + json.dumps(
+            {k: round(v, 3) for k, v in run["wall_s"].items()}))
+    checkpoint_ms = time_checkpoints(card, tmp, sweep_run, serial["whole_ckpt"])
     step_ms = time_boolean_steps(card)
     launches = {name: serial["launches"][name] + sweep["launches"][name] +
                 amorphous_launches[name] for name in serial["launches"]}
     return dict(launches=launches, serve_err=serve_err, checkpoint_ms=checkpoint_ms,
-                step_ms=step_ms)
+                step_ms=step_ms, serial_ckpt=serial["whole_ckpt"],
+                sweep_ckpt=sweep["whole_ckpt"])
+
+
+# --------------------------------------------------------------------------
+# phase 13: main path 8, HTTP serving
+
+HELLO_TIMEOUT = 180          # seconds for a serve process to print its hello line
+HTTP_REQUESTS = 200          # concurrent requests held to the direct engine
+HTTP_MAX_ROWS = 300          # past the top bucket (128): chunked dispatch
+HTTP_CONCURRENCY = 32
+# the sweep process: per-tenant quota (rate, burst), admission limit, cache size
+QUOTA = ("1", "2")
+ADMISSION_LIMIT = "2"
+RESPONSE_CACHE = "64"
+# β values routed over the CLI sweep's endpoints (0.03, 0.1, 0.3, 1.0, two
+# members each): on, between and beyond them
+SWEEP_BETAS = (0.01, 0.03, 0.05, 0.1, 0.17, 0.3, 0.55, 1.0, 3.0)
+# closed-loop timing: requests per round at each concurrency, two rounds
+TIMING_REQUESTS = {1: 200, HTTP_CONCURRENCY: 640}
+
+
+class ServeProcess:
+    """``python -m dib_tpu_torch serve ...`` in a process of its own: its
+    hello line, its stderr in a temporary file, SIGTERM."""
+
+    def __init__(self, label, argv):
+        import tempfile
+
+        env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.label = label
+        self.err = tempfile.TemporaryFile("w+")
+        # a session of its own: kill() takes its pool and prefork children too
+        self.proc = subprocess.Popen([*CLI_COMMAND, "serve", *argv], cwd=ROOT, env=env,
+                                     text=True, stdout=subprocess.PIPE, stderr=self.err,
+                                     start_new_session=True)
+        self.hello = None
+
+    def stderr_tail(self) -> str:
+        self.err.seek(0)
+        return self.err.read()[-3000:]
+
+    def wait_hello(self) -> dict:
+        import select
+
+        end = time.monotonic() + HELLO_TIMEOUT
+        while self.hello is None:
+            if self.proc.poll() is not None or time.monotonic() > end:
+                fail(f"serve {self.label}: no hello line (exit {self.proc.poll()})\n"
+                     f"{self.stderr_tail()}")
+            if select.select([self.proc.stdout], [], [], 0.5)[0]:
+                line = self.proc.stdout.readline()
+                try:
+                    self.hello = json.loads(line)
+                except ValueError:
+                    fail(f"serve {self.label}: the first line is not the hello: {line!r}\n"
+                         f"{self.stderr_tail()}")
+        return self.hello
+
+    @property
+    def url(self) -> str:
+        return self.hello["serving"]
+
+    def stop(self) -> tuple[int, list]:
+        """SIGTERM; (exit code, the JSON lines printed after the hello)."""
+        import signal
+
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = self.proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            fail(f"serve {self.label}: SIGTERM did not stop it in 120 s")
+        return self.proc.returncode, [json.loads(line) for line in out.splitlines()
+                                      if line.startswith("{")]
+
+    def kill(self):
+        """SIGKILL the process and every process of its session."""
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+
+def http_call(url, path, body=None, headers=None):
+    """(status, headers, body bytes) of one request on a fresh connection."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    request = urllib.request.Request(url + path, data=data, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(request, timeout=120) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as exc:
+        return exc.code, dict(exc.headers), exc.read()
+
+
+def http_json(url, path, body=None, headers=None):
+    status, _, raw = http_call(url, path, body, headers)
+    return status, json.loads(raw)
+
+
+def parallel_calls(fns, workers=HTTP_CONCURRENCY):
+    """Run the callables from ``workers`` threads; their results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(lambda fn: fn(), fns))
+
+
+def hold_served(label, payload, want, n):
+    """Each array of a served payload against the direct engine's: shape and
+    SERVE_TOL; returns the largest error."""
+    worst = 0.0
+    for key, value in want.items():
+        got = np.asarray(payload[key], np.float32)
+        if got.shape != value.shape or got.shape[0] != n or not np.isfinite(got).all():
+            fail(f"{label}: {key} of shape {got.shape}, expected {value.shape} finite")
+        err = np.abs(got - value)
+        if not (err <= SERVE_TOL + SERVE_TOL * np.abs(value)).all():
+            fail(f"{label}: {key} differs from the direct engine by {err.max():.3e}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+# one load-generating process: reads the request body, opens its keep-alive
+# connections, prints "ready", waits for "go", sends its requests back to
+# back from its threads and prints the latencies (s) and statuses as JSON
+LOAD_CLIENT = r"""
+import http.client, json, sys, threading, time
+from urllib.parse import urlparse
+url, threads, per_thread = urlparse(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
+body = sys.stdin.readline().encode()
+conns = [http.client.HTTPConnection(url.hostname, url.port, timeout=120) for _ in range(threads)]
+out = [[] for _ in range(threads)]
+def client(k):
+    for _ in range(per_thread):
+        t0 = time.perf_counter()
+        conns[k].request("POST", "/v1/predict", body, {"Content-Type": "application/json"})
+        resp = conns[k].getresponse()
+        resp.read()
+        out[k].append((time.perf_counter() - t0, resp.status))
+workers = [threading.Thread(target=client, args=(k,)) for k in range(threads)]
+print("ready", flush=True)
+sys.stdin.readline()
+for t in workers:
+    t.start()
+for t in workers:
+    t.join()
+print(json.dumps([x for per in out for x in per]), flush=True)
+"""
+LOAD_THREADS = 8             # threads per load-generating process
+
+
+def closed_loop(url, rows, concurrency, requests):
+    """``requests`` predicts of ``rows`` at closed-loop ``concurrency``:
+    ceil(concurrency / LOAD_THREADS) client processes of their own (one
+    Python client process caps near a thousand requests per second), each
+    thread on its own keep-alive connection, started together: (latencies
+    in s, wall s). Fails on any status but 200."""
+    procs_n = max(1, -(-concurrency // LOAD_THREADS))
+    threads = concurrency // procs_n
+    per_thread = requests // (procs_n * threads)
+    body = json.dumps({"x": rows.tolist()}) + "\n"
+    clients = [subprocess.Popen([sys.executable, "-c", LOAD_CLIENT, url, str(threads),
+                                 str(per_thread)], stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE, text=True) for _ in range(procs_n)]
+    try:
+        for client in clients:
+            client.stdin.write(body)
+            client.stdin.flush()
+        for client in clients:
+            if client.stdout.readline().strip() != "ready":
+                fail(f"closed loop on {url}: a load client did not start")
+        t0 = time.perf_counter()
+        for client in clients:
+            client.stdin.write("go\n")
+            client.stdin.flush()
+        answers = [json.loads(client.stdout.readline()) for client in clients]
+        wall = time.perf_counter() - t0
+    finally:
+        for client in clients:
+            client.kill()
+            client.wait()
+    answers = [a for per in answers for a in per]
+    statuses = {status for _, status in answers}
+    if statuses != {200} or len(answers) != procs_n * threads * per_thread:
+        fail(f"closed loop on {url}: statuses {sorted(statuses)}, {len(answers)} answers")
+    return [seconds for seconds, _ in answers], wall
+
+
+def quantiles_ms(seconds) -> dict:
+    ordered = sorted(seconds)
+    pick = lambda q: ordered[min(int(q * len(ordered)), len(ordered) - 1)] * 1e3
+    return {"p50": round(pick(0.5), 4), "p99": round(pick(0.99), 4), "n": len(ordered)}
+
+
+def pool_worker_pids(pid) -> list[int]:
+    """The engine-subprocess workers of serve process ``pid``: its children
+    started by multiprocessing's spawn (not its resource tracker)."""
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmdline = f.read()
+        except OSError:
+            continue
+        if ppid == pid and b"spawn_main" in cmdline:
+            found.append(int(entry))
+    return sorted(found)
+
+
+def serve_direct_engines(serial_ckpt, sweep_ckpt):
+    """The direct engines phase 13 holds the servers to: the serial
+    checkpoint through ``InferenceEngine.from_checkpoint``, and each member
+    of the sweep checkpoint carved out of the restored stack."""
+    from dib_tpu_torch import cli
+    from dib_tpu_torch.parallel import BetaSweepTrainer
+    from dib_tpu_torch.serve import InferenceEngine
+    from dib_tpu_torch.train import DIBTrainer
+    from dib_tpu_torch.train.checkpoint import DIBCheckpointer
+
+    args = cli.serve_parser().parse_args(["--checkpoint_dir", serial_ckpt])
+    bundle = cli._bundle_from_args(args)
+    model, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE)
+    serial = InferenceEngine.from_checkpoint(
+        DIBTrainer(model, bundle, cli._serve_config(args), device=CLI_DEVICE), serial_ckpt)
+    args = cli.serve_parser().parse_args(["--checkpoint_dir", sweep_ckpt, *CLI_SWEEP])
+    ends = np.repeat(np.asarray(args.sweep_beta_ends, np.float64), args.sweep_repeats)
+    stacked, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE, replicas=len(ends))
+    sweep = BetaSweepTrainer(stacked, bundle, cli._serve_config(args), args.beta_start, ends,
+                             device=CLI_DEVICE)
+    states, _, _ = DIBCheckpointer(sweep_ckpt).restore(sweep)
+    members = [InferenceEngine(states.params["model"].carve(r), device=CLI_DEVICE)
+               for r in range(len(ends))]
+    return serial, members, ends, np.asarray(bundle.x_valid, np.float32)
+
+
+def check_serial_server(server, direct, x):
+    """200 concurrent predicts and encodes of 1 to 300 rows held to the
+    direct engine; the error map; the GET routes. Returns the number of
+    requests that went through the batcher."""
+    rng = np.random.default_rng(SEED)
+    jobs = []
+    for i in range(HTTP_REQUESTS):
+        rows = x[rng.integers(0, len(x), size=int(rng.integers(1, HTTP_MAX_ROWS + 1)))]
+        op = ("predict", "encode")[i % 2]
+        jobs.append((op, rows))
+    answers = parallel_calls([lambda op=op, rows=rows: http_json(
+        server.url, f"/v1/{op}", {"x": rows.tolist()}) for op, rows in jobs])
+    worst = 0.0
+    for i, ((op, rows), (status, payload)) in enumerate(zip(jobs, answers)):
+        if status != 200:
+            fail(f"HTTP serial: request {i} ({op}, {len(rows)} rows) gave {status}: {payload}")
+        worst = max(worst, hold_served(f"HTTP serial request {i} ({op}, {len(rows)} rows)",
+                                       payload, getattr(direct, op)(rows), len(rows)))
+    over_top = sum(len(rows) > direct.max_bucket for _, rows in jobs)
+    width = x.shape[1]
+    cases = [("wrong width", "/v1/predict", {"x": [[0.0] * (width + 1)]}, 400),
+             ("non-finite", "/v1/predict", {"x": [[float("nan")] * width]}, 400),
+             ("unknown model", "/v1/predict", {"x": x[:1].tolist(), "model": "nope"}, 404),
+             ("unknown route", "/v1/nope", {"x": x[:1].tolist()}, 404)]
+    for label, path, body, want in cases:
+        status, payload = http_json(server.url, path, body)
+        if status != want or "error" not in payload:
+            fail(f"HTTP serial: {label} gave {status} {payload}, expected {want}")
+    status, health = http_json(server.url, "/healthz")
+    status_models, models = http_json(server.url, "/v1/models")
+    status_metrics, metrics = http_json(server.url, "/metrics")
+    prom_status, prom_headers, prom = http_call(server.url, "/metrics",
+                                                headers={"Accept": "text/plain"})
+    if status != 200 or health["status"] != "ok" or health["feature_width"] != width or \
+            health["healthy_replicas"] != torch.cuda.device_count():
+        fail(f"HTTP serial: /healthz gave {status} {health}")
+    if status_models != 200 or [m["model"] for m in models["models"]] != ["default"]:
+        fail(f"HTTP serial: /v1/models gave {status_models} {models}")
+    if status_metrics != 200 or metrics["counters"].get("serve.requests.ok") != HTTP_REQUESTS:
+        fail(f"HTTP serial: /metrics counters {metrics.get('counters')}")
+    if prom_status != 200 or not prom_headers.get("Content-Type", "").startswith("text/plain") \
+            or b"# TYPE dib_serve_requests_ok counter" not in prom:
+        fail(f"HTTP serial: Prometheus /metrics gave {prom_status} {prom[:200]!r}")
+    print(f"HTTP serial: {HTTP_REQUESTS} concurrent predict/encode requests of 1-{HTTP_MAX_ROWS} "
+          f"rows ({over_top} past the top bucket {direct.max_bucket}) from {HTTP_CONCURRENCY} "
+          f"threads, each held to InferenceEngine.from_checkpoint: max_abs_err={worst:.3e} "
+          f"tol={SERVE_TOL}; wrong width 400, non-finite 400, unknown model 404, unknown route "
+          f"404; /healthz {health['healthy_replicas']} healthy on {health['replicas'][0]['device']}"
+          f", /v1/models, /metrics as JSON and Prometheus text")
+    return HTTP_REQUESTS, worst
+
+
+def check_sweep_server(server, members, ends, x):
+    """β routing to the nearest endpoint in log-β, each answer held to the
+    chosen member's carved engine; then quota (429), admission (503) and the
+    response cache on the same process."""
+    rows = x[:5]
+    worst, chosen = 0.0, []
+    for i, beta in enumerate(SWEEP_BETAS):
+        want = int(np.argmin(np.abs(np.log(ends) - math.log(beta))))    # first of ties
+        status, payload = http_json(server.url, "/v1/predict",
+                                    {"x": rows.tolist(), "beta": beta, "tenant": f"beta{i}"})
+        if status != 200 or payload["replica"]["replica"] != want or \
+                payload["replica"]["beta_end"] != float(ends[want]):
+            fail(f"HTTP sweep: beta {beta} gave {status} {payload.get('replica')}, expected "
+                 f"member {want} (beta_end {ends[want]})")
+        worst = max(worst, hold_served(f"HTTP sweep beta {beta}", payload,
+                                       members[want].predict(rows), len(rows)))
+        chosen.append(want)
+    # quota: tenant "greedy" has a burst of QUOTA[1]
+    quota = [http_call(server.url, "/v1/predict", {"x": rows[:1].tolist()},
+                       {"X-DIB-Tenant": "greedy"}) for _ in range(4)]
+    codes = [q[0] for q in quota]
+    limited = [q for q in quota if q[0] == 429]
+    if codes[:2] != [200, 200] or not limited or any(
+            int(q[1].get("Retry-After", 0)) < 1 for q in limited):
+        fail(f"HTTP sweep: the greedy tenant's statuses {codes}; expected 200, 200, then 429 "
+             f"with Retry-After")
+    # admission: concurrent 300-row requests to one member, each its own tenant
+    big = x[:HTTP_MAX_ROWS].tolist()
+    shed = parallel_calls([lambda i=i: http_call(server.url, "/v1/predict", {
+        "x": big, "beta": 1.0, "tenant": f"shed{i}"}) for i in range(64)], workers=64)
+    shed_codes = sorted({s[0] for s in shed})
+    if 503 not in shed_codes or set(shed_codes) - {200, 503} or any(
+            "Retry-After" not in s[1] for s in shed if s[0] == 503):
+        fail(f"HTTP sweep: 64 concurrent requests with admission limit {ADMISSION_LIMIT} gave "
+             f"statuses {shed_codes}; expected some 503 with Retry-After")
+    n_shed = sum(s[0] == 503 for s in shed)
+    # the response cache: a query not sent before, twice
+    body = {"x": x[5:10].tolist(), "beta": 0.2}
+    first = http_json(server.url, "/v1/predict", {**body, "tenant": "cache1"})
+    again = http_json(server.url, "/v1/predict", {**body, "tenant": "cache2"})
+    if first[0] != 200 or again[0] != 200 or "cached" in first[1] or \
+            again[1].get("cached") is not True or again[1]["prediction"] != first[1]["prediction"]:
+        fail(f"HTTP sweep: the repeated query was not a cache hit: {again}")
+    print(f"HTTP sweep: {len(ends)} members, endpoints {ends.tolist()}; beta "
+          f"{list(SWEEP_BETAS)} routed to members {chosen} (nearest in log-beta), each answer "
+          f"held to its member's carved engine: max_abs_err={worst:.3e} tol={SERVE_TOL}; "
+          f"--quota_rps {QUOTA[0]} --quota_burst {QUOTA[1]}: a tenant's statuses {codes} "
+          f"(Retry-After {limited[0][1]['Retry-After']}); --admission_limit {ADMISSION_LIMIT}: "
+          f"{n_shed} of 64 concurrent requests shed with 503 + Retry-After; --response_cache "
+          f"{RESPONSE_CACHE}: the repeated query answered with cached: true")
+    return worst
+
+
+def check_pool_server(server, direct, x):
+    """--workers 2 on the card: SIGKILL one worker mid-service, every call
+    still 200 and held to the direct engine; the probe respawns it."""
+    import signal
+
+    pids = pool_worker_pids(server.proc.pid)
+    if len(pids) != 2:
+        fail(f"HTTP workers: found worker pids {pids}, expected 2")
+    rng = np.random.default_rng(SEED + 1)
+    jobs = [x[rng.integers(0, len(x), size=int(rng.integers(1, 9)))] for _ in range(240)]
+    done = []
+
+    def job(rows):
+        answer = http_json(server.url, "/v1/predict", {"x": rows.tolist()})
+        done.append(1)
+        return answer
+
+    def killer():
+        while len(done) < 40:
+            time.sleep(0.001)
+        os.kill(pids[0], signal.SIGKILL)
+        return len(done)
+
+    t0 = time.monotonic()
+    answers = parallel_calls([killer] + [lambda rows=rows: job(rows) for rows in jobs],
+                             workers=9)
+    killed_after, answers = answers[0], answers[1:]
+    for i, (rows, (status, payload)) in enumerate(zip(jobs, answers)):
+        if status != 200:
+            fail(f"HTTP workers: request {i} after the kill gave {status}: {payload}")
+        hold_served(f"HTTP workers request {i}", payload, direct.predict(rows), len(rows))
+    end = time.monotonic() + 150
+    while time.monotonic() < end:
+        health = http_json(server.url, "/healthz")[1]
+        now = pool_worker_pids(server.proc.pid)
+        if health["healthy_replicas"] == 2 and len(now) == 2 and pids[0] not in now:
+            break
+        time.sleep(0.5)
+    else:
+        fail(f"HTTP workers: the killed worker was not respawned and re-admitted: {health}, "
+             f"workers {pool_worker_pids(server.proc.pid)}")
+    print(f"HTTP workers: --workers 2 on {health['replicas'][0].get('device')}, worker pid "
+          f"{pids[0]} SIGKILLed after {killed_after} of {len(jobs)} requests from 8 threads: "
+          f"all {len(jobs)} answered 200, each held to the direct engine (tol {SERVE_TOL}); "
+          f"the probe respawned it as pid {sorted(set(now) - set(pids))} and re-admitted it "
+          f"{time.monotonic() - t0:.1f} s after the traffic began")
+    return len(jobs)
+
+
+def check_prefork_server(server, card):
+    """--prefork 2: both worker pids serve traffic, and ``serve top --once``
+    renders the fleet."""
+    pids = sorted(server.hello["workers"])
+    x = np.zeros((1, 10), np.float32).tolist()
+    for _ in range(64):
+        if http_json(server.url, "/v1/predict", {"x": x})[0] != 200:
+            fail("HTTP prefork: a predict did not answer 200")
+    served = {}
+    for _ in range(200):
+        snapshot = http_json(server.url, "/metrics")[1]
+        served[snapshot["pid"]] = snapshot["counters"].get("serve.requests.ok", 0)
+        if len(served) == 2:
+            break
+    if sorted(served) != pids or not all(served.values()):
+        fail(f"HTTP prefork: requests served per pid {served}, expected both of {pids}")
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    top = subprocess.run([*CLI_COMMAND, "serve", "top", "--url", server.url, "--workers", "2",
+                          "--once"], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
+    if top.returncode != 0 or "2/2 worker(s) seen" not in top.stdout:
+        fail(f"HTTP prefork: serve top gave {top.returncode}:\n{top.stdout}\n{top.stderr}")
+    print(f"HTTP prefork: --prefork 2, worker pids {pids} served {served} of 64 predicts "
+          f"(kernel-balanced connections); serve top --once:\n{top.stdout.rstrip()}")
+
+
+def served_launches(procs) -> dict:
+    """The kernel launch counts that the serving processes publish on
+    ``/metrics``, read before SIGTERM and summed: the single process, the
+    sweep's, the pool's front process and both prefork workers (each pid
+    through ``serve top``'s scrape). Each process starts with every count
+    at 0. The pool's two engine subprocesses publish nothing and are not
+    read."""
+    from dib_tpu_torch.serve.top import scrape_fleet
+
+    per_process = {}
+    for label in ("serial", "sweep", "workers"):
+        snapshot = http_json(procs[label].url, "/metrics")[1]
+        per_process[f"{label} pid {snapshot['pid']}"] = snapshot["kernel_launches"]
+    fleet = scrape_fleet(procs["prefork"].url, 2, timeout_s=30.0)
+    if sorted(fleet) != sorted(procs["prefork"].hello["workers"]):
+        fail(f"HTTP prefork: /metrics reached pids {sorted(fleet)}, expected "
+             f"{sorted(procs['prefork'].hello['workers'])}")
+    for pid, snapshot in fleet.items():
+        per_process[f"prefork pid {pid}"] = snapshot["kernel_launches"]
+    total = {name: sum(counts[name] for counts in per_process.values())
+             for name in next(iter(per_process.values()))}
+    print(f"main path launches (HTTP serving, read from /metrics of the {len(per_process)} "
+          f"serving processes; the pool's engine subprocesses are not read): "
+          f"{json.dumps(total)}; per process: {json.dumps(per_process)}")
+    return total
+
+
+def time_http(card, procs, direct, x):
+    """Host-clock timings of the HTTP plane, in turns: requests per second
+    at closed-loop concurrency 32 (1 row) for 1 process, --prefork 2 and
+    --workers 2; request latency p50/p99 for 1 and 8 rows at concurrency 1
+    and 32 on the single process, beside the direct ``engine.predict``.
+    Returns (the figures, the requests sent to the single process)."""
+    rates = {name: [] for name in ("1 process", "prefork 2", "workers 2")}
+    urls = {"1 process": procs["serial"].url, "prefork 2": procs["prefork"].url,
+            "workers 2": procs["workers"].url}
+    latency = {}
+    sent = 0
+    for turn in (0, 1):
+        order = list(rates) if turn == 0 else list(rates)[::-1]
+        for name in order:
+            n = TIMING_REQUESTS[HTTP_CONCURRENCY]
+            seconds, wall = closed_loop(urls[name], x[:1], HTTP_CONCURRENCY, n)
+            rates[name].append(len(seconds) / wall)
+            sent += len(seconds) if name == "1 process" else 0
+        for rows in (1, 8):
+            for conc in (1, HTTP_CONCURRENCY):
+                seconds, _ = closed_loop(urls["1 process"], x[:rows], conc,
+                                         TIMING_REQUESTS[conc])
+                latency.setdefault(f"{rows} row(s), concurrency {conc}", []).extend(seconds)
+                sent += len(seconds)
+    direct_s = {}
+    for rows in (1, 8):
+        direct.predict(x[:rows])
+        calls = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            direct.predict(x[:rows])
+            calls.append(time.perf_counter() - t0)
+        direct_s[f"{rows} row(s)"] = quantiles_ms(calls)
+    figures = {
+        "requests_per_s": {k: [round(v, 1) for v in vals] for k, vals in rates.items()},
+        "latency_ms": {k: quantiles_ms(v) for k, v in latency.items()},
+        "direct_predict_ms": direct_s,
+    }
+    print(f"timing [{card}] HTTP serving (host clock, closed loop, keep-alive connections "
+          f"from {LOAD_THREADS} threads per client process; two rounds in turns): "
+          + json.dumps(figures))
+    return figures, sent
+
+
+def drive_http(card, serial_ckpt, sweep_ckpt, tmp):
+    """Phase 13: ``python -m dib_tpu_torch serve`` over phase 12's serial
+    and 8-replica checkpoints as processes of their own (single, sweep with
+    quotas, admission and the cache, --workers 2, --prefork 2), started
+    together; every answer held to the direct engine; timings; SIGTERM
+    ends each with exit 0 and, for the single process, a summary line
+    counting every request it served."""
+    phase_t0 = time.perf_counter()
+    serial, members, ends, x = serve_direct_engines(serial_ckpt, sweep_ckpt)
+    out = os.path.join(tmp, "serve")
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for label, argv in (
+                ("serial", ["--checkpoint_dir", serial_ckpt]),
+                ("sweep", ["--checkpoint_dir", sweep_ckpt, *CLI_SWEEP, "--quota_rps", QUOTA[0],
+                           "--quota_burst", QUOTA[1], "--admission_limit", ADMISSION_LIMIT,
+                           "--response_cache", RESPONSE_CACHE]),
+                ("workers", ["--checkpoint_dir", serial_ckpt, "--workers", "2",
+                             "--probe_after_s", "0.5", "--probe_timeout_s", "60"]),
+                ("prefork", ["--checkpoint_dir", serial_ckpt, "--prefork", "2"])):
+            procs[label] = ServeProcess(label, [*argv, "--port", "0",
+                                                "--outdir", os.path.join(out, label)])
+        hellos = {label: proc.wait_hello() for label, proc in procs.items()}
+        start_s = time.perf_counter() - t0
+        print(f"HTTP: 4 serve processes started together, every hello line after "
+              f"{start_s:.1f} s: " + json.dumps(hellos))
+        sent, serve_err = check_serial_server(procs["serial"], serial, x)
+        sweep_err = check_sweep_server(procs["sweep"], members, ends, x)
+        check_pool_server(procs["workers"], serial, x)
+        check_prefork_server(procs["prefork"], card)
+        figures, timed = time_http(card, procs, serial, x)
+        sent += timed
+        got = served_launches(procs)
+        for label, proc in procs.items():
+            code, lines = proc.stop()
+            if code != 0:
+                fail(f"serve {label}: SIGTERM gave exit {code}\n{proc.stderr_tail()}")
+            if label == "serial" and (not lines or lines[-1].get("served_requests") != sent):
+                fail(f"serve serial: summary {lines[-1:]} after {sent} requests")
+        print(f"HTTP: SIGTERM stopped all 4 with exit 0; the single process's summary: "
+              f"served_requests {sent}, as sent; phase 13 took "
+              f"{time.perf_counter() - phase_t0:.1f} s")
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    return dict(serve_err=max(serve_err, sweep_err), figures=figures, launches=got)
 
 
 # --------------------------------------------------------------------------
@@ -2318,6 +2881,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    try:
+        import tensorstore
+    except ImportError as exc:
+        print(f"tensorstore: does not import here ({exc}); a reader of JAX/Orbax checkpoints "
+              f"cannot use it on this machine")
+    else:
+        from importlib.metadata import PackageNotFoundError, version
+
+        try:
+            release = version("tensorstore")
+        except PackageNotFoundError:
+            release = "unrecorded"
+        print(f"tensorstore: imports here ({tensorstore.__file__}), version {release}")
 
     # ---- 2. build ------------------------------------------------------
     t0 = time.perf_counter()
@@ -2333,7 +2909,7 @@ def main() -> int:
     flash_err, flash_bf16_err = check_flash()
     density_errs = check_log_density_mat()
 
-    # ---- 4-10 and 12. main paths and their checks ----------------------
+    # ---- 4-10, 12 and 13. main paths and their checks ------------------
     serving = serve_and_query()
     flagship = train_flagship()
     paths_step = compare_paths(flagship)
@@ -2343,7 +2919,9 @@ def main() -> int:
     sweep_run = drive_sweep()
     northstar = drive_northstar()
     card_vs_cpu = hold_bf16_card_vs_cpu(flagship)
-    cli_run = drive_cli(card, sweep_run)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        cli_run = drive_cli(card, sweep_run, tmp)
+        http_run = drive_http(card, cli_run["serial_ckpt"], cli_run["sweep_ckpt"], tmp)
     bench_launches = run_microbench()
 
     # ---- 11. timings ---------------------------------------------------
@@ -2407,9 +2985,10 @@ def main() -> int:
           f"(host clock, one run); probe hook {probe_ms:.4f} ms per call")
     time_sweep(card, sweep_run, northstar, paths_step, flagship)
 
-    # ---- 13-14. summary lines ------------------------------------------
+    # ---- 14-15. summary lines ------------------------------------------
     runs = (serving["launches"], flagship["launches"], driver["launches"],
-            sweep_run["launches"], northstar["launches"], cli_run["launches"], bench_launches)
+            sweep_run["launches"], northstar["launches"], cli_run["launches"],
+            http_run["launches"], bench_launches)
     total = {name: sum(r.get(name, 0) for r in runs)
              for name in ("mi_row_stats", "flash_attention", "flash_attention_bf16",
                           "log_density_mat")}

@@ -14,7 +14,8 @@ no GPU they raise rather than fall back.
 __version__ = "0.1.0"
 
 # PEP 562 lazy submodule access: importing the package imports no torch.
-_SUBMODULES = ("data", "interop", "models", "ops", "parallel", "serve", "train", "workloads")
+_SUBMODULES = ("data", "faults", "interop", "models", "ops", "parallel", "serve", "telemetry",
+               "train", "workloads")
 
 
 def __getattr__(name):

@@ -1,5 +1,5 @@
-"""Command-line trainer of the port: ``python -m dib_tpu_torch [train] ...``
-(counterpart of ``dib_tpu/cli.py``).
+"""Command-line interface of the port: ``python -m dib_tpu_torch [train] ...``,
+``workload`` and ``serve`` (counterpart of ``dib_tpu/cli.py``).
 
 ``train`` takes the JAX package's flags with the same defaults and trains a
 ``DistributedIBModel`` on a registered dataset, serially or, with
@@ -8,13 +8,17 @@ program; ``--checkpoint_dir`` saves every ``--checkpoint_frequency`` epochs
 and resumes when the directory holds a checkpoint, and SIGTERM/SIGINT
 finish the chunk in flight, write a chunk-aligned checkpoint and exit with
 75. ``workload amorphous|amorphous_protocols`` runs the flagship drivers.
+``serve`` serves a checkpoint that ``train`` wrote over the JSON HTTP API of
+:mod:`dib_tpu_torch.serve` (serially or a sweep's β-labeled members; in
+process, behind ``--workers`` engine subprocesses, or as a ``--prefork``
+fleet), and ``serve top`` watches a running fleet.
 
 What the port does not implement is refused before any training, with one
 line naming its item in ROADMAP.md, never ignored: the watchdog, the
 heartbeat, fault plans (``DIB_FAULT_PLAN``), the event stream
 (``--telemetry-dir``, ``--runs-root``), meshes (``--mesh_*``, ``--engine
-shard_map``), the other subcommands and workloads, and datasets the port's
-registry lacks.
+shard_map``), the other subcommands and workloads, datasets the port's
+registry lacks, and serve's ``--exec_cache``.
 
 Artifacts (in ``--artifact_outdir``), written in this order:
   - ``history.npz`` (``history_replica{r}.npz`` for a sweep): beta,
@@ -29,7 +33,7 @@ Artifacts (in ``--artifact_outdir``), written in this order:
     (compression matrices, drawn during training, are then refused).
 
 The entry points run on the GPU; tests pass ``device="cpu"`` to
-:func:`run` or :func:`main`.
+:func:`run`, :func:`serve_main` or :func:`main`.
 """
 
 from __future__ import annotations
@@ -44,13 +48,14 @@ from typing import Sequence
 
 _ITEM = "ROADMAP.md queue 1, item {}"
 JAX_CHECKPOINTS = _ITEM.format("1 (reading JAX/Orbax checkpoints)")
-SERVE_STACK = _ITEM.format("2 (the HTTP serve stack)")
 DURABILITY = _ITEM.format("3 (watchdog, telemetry and fault plans)")
 DATASETS = _ITEM.format("4 (the tabular and pendulum datasets)")
 WORKLOADS = _ITEM.format("5 (the other workloads)")
 SUBCOMMANDS = _ITEM.format("6 (the CLI's other subcommands)")
 MULTI_GPU = _ITEM.format("7 (multi-GPU replicas)")
 CONTRASTIVE_SWEEP = _ITEM.format("8 (contrastive sweeps)")
+SERVE_GRAPHS = ("ROADMAP.md, waiting for the port's benchmark: per-bucket CUDA graphs "
+                "in the serving engine")
 
 # train flags the port refuses when given a value other than the default
 REFUSED_FLAGS = {
@@ -68,7 +73,6 @@ REFUSED_FLAGS = {
 # program, and '' turns off the event stream the port never writes
 ACCEPTED_VALUES = {"engine": ("vmap",), "telemetry_dir": ("",)}
 REFUSED_SUBCOMMANDS = {
-    "serve": SERVE_STACK,
     "telemetry": SUBCOMMANDS,
     "lint": SUBCOMMANDS,
     "sched": SUBCOMMANDS,
@@ -210,8 +214,14 @@ def refusal(args, defaults: dict) -> str | None:
     if args.command in REFUSED_SUBCOMMANDS:
         return (f"the {args.command!r} subcommand is not ported "
                 f"({REFUSED_SUBCOMMANDS[args.command]})")
-    if args.command == "workload":
-        return "the 'workload' subcommand must come first: python -m dib_tpu_torch workload ..."
+    if args.command in ("workload", "serve"):
+        return (f"the {args.command!r} subcommand must come first: "
+                f"python -m dib_tpu_torch {args.command} ...")
+    return _model_refusal(args)
+
+
+def _model_refusal(args) -> str | None:
+    """What the port refuses in the flags shared by ``train`` and ``serve``."""
     from dib_tpu_torch.data.registry import available_datasets
 
     if args.dataset not in available_datasets():
@@ -654,12 +664,242 @@ def workload_main(argv: Sequence[str], device=None) -> int:
     return 0
 
 
+# ---------------------------------------------------------------- serving
+# ``python -m dib_tpu_torch serve``: a checkpoint of ``train`` behind the JSON
+# HTTP API of dib_tpu_torch.serve, with the JAX package's flags and defaults.
+
+class _ServeParser(argparse.ArgumentParser):
+    """Refuses what the port does not serve as it parses."""
+
+    def parse_args(self, args=None, namespace=None):
+        parsed = super().parse_args(args, namespace)
+        problem = serve_refusal(parsed)
+        if problem:
+            self.error(problem)
+        return parsed
+
+
+def serve_parser() -> argparse.ArgumentParser:
+    parser = _ServeParser(
+        prog="dib_tpu_torch serve",
+        description="Serve a checkpoint of `dib_tpu_torch train` over a JSON HTTP API on the "
+                    f"GPU ({NO_EVENT_STREAM}).",
+    )
+    _add_model_flags(parser)
+    parser.add_argument("--checkpoint_dir", type=str, required=True,
+                        help="DIBCheckpointer directory holding the trained run (its "
+                             "manifest's structure and digests are verified).")
+    # restore-template flags: the checkpoint's optimizer state must restore
+    # into a structurally identical template
+    parser.add_argument("--optimizer", type=str, default="adam")
+    parser.add_argument("--batch_size", type=int, default=128)
+    parser.add_argument("--warmup_steps", type=int, default=0)
+    parser.add_argument("--beta_start", type=float, default=1e-4)
+    parser.add_argument("--beta_end", type=float, default=3e0)
+    parser.add_argument("--sweep_beta_ends", type=float, nargs="+", default=None,
+                        help="Serve a SWEEP checkpoint: one β-labeled replica per end-beta "
+                             "(x --sweep_repeats); clients select with {\"beta\": x}.")
+    parser.add_argument("--sweep_repeats", type=int, default=1)
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8100,
+                        help="0 binds an ephemeral port (printed on stdout).")
+    parser.add_argument("--buckets", type=int, nargs="+", default=None,
+                        help="Padded batch sizes (default: the engine's DEFAULT_BUCKETS, "
+                             "1 8 32 128).")
+    parser.add_argument("--max_batch", type=int, default=32)
+    parser.add_argument("--max_wait_ms", type=float, default=2.0)
+    parser.add_argument("--max_queue", type=int, default=256)
+    parser.add_argument("--eject_after", type=int, default=3,
+                        help="Consecutive dispatch failures before a replica is ejected "
+                             "from routing.")
+    parser.add_argument("--probe_after_s", type=float, default=5.0,
+                        help="Rest period before an ejected replica is probed for "
+                             "re-admission (0 disables the probe thread).")
+    parser.add_argument("--probe_timeout_s", type=float, default=5.0,
+                        help="A re-admission probe slower than this counts as failed.")
+    parser.add_argument("--num_devices", type=int, default=0,
+                        help="CUDA devices to replicate over (0 = all; ignored when serving "
+                             "a sweep).")
+    parser.add_argument("--prefork", type=int, default=0,
+                        help="Spawn this many FULL server processes sharing one port via "
+                             "SO_REUSEPORT (the kernel balances connections). 0 = single "
+                             "process. The parent supervises and respawns dead workers.")
+    parser.add_argument("--reuse_port", action="store_true",
+                        help="Bind with SO_REUSEPORT (set automatically on prefork workers).")
+    parser.add_argument("--workers", type=int, default=0,
+                        help="Run this many replica engines in worker SUBPROCESSES, each on "
+                             "the GPU, behind the pipe request plane (0 = in-process "
+                             "replicas; ignored when serving a sweep).")
+    parser.add_argument("--model_name", type=str, default="default",
+                        help="Zoo name this checkpoint serves under (clients select with "
+                             "{\"model\": name}).")
+    parser.add_argument("--quota_rps", type=float, default=0.0,
+                        help="Per-tenant token-bucket rate (requests/s); a tenant over "
+                             "budget gets 429 + Retry-After (0 disables quotas).")
+    parser.add_argument("--quota_burst", type=float, default=None,
+                        help="Per-tenant burst headroom (default: max(quota_rps, 1)).")
+    parser.add_argument("--admission_limit", type=int, default=0,
+                        help="Global bound on in-flight requests; beyond it requests shed "
+                             "with 503 + Retry-After (0 disables).")
+    parser.add_argument("--response_cache", type=int, default=0,
+                        help="Response-cache capacity (entries) for repeated (input, beta, "
+                             "checkpoint) queries (0 disables).")
+    parser.add_argument("--exec_cache", type=int, default=0,
+                        help="Not ported: the engine runs eagerly and holds no per-bucket "
+                             f"executable; refused when > 0 ({SERVE_GRAPHS}).")
+    parser.add_argument("--serve_seconds", type=float, default=0.0,
+                        help="Auto-shutdown after this many seconds (0 = run until "
+                             "SIGINT/SIGTERM).")
+    parser.add_argument("--outdir", type=str, default="./serve_artifacts/",
+                        help=f"Run directory (created and named in the hello line; "
+                             f"{NO_EVENT_STREAM}).")
+    _add_telemetry_dir_flag(parser)
+    return parser
+
+
+def serve_refusal(args) -> str | None:
+    """The one-line reason the port refuses these serve flags, or None."""
+    if args.exec_cache > 0:
+        return f"--exec_cache {args.exec_cache} is not ported ({SERVE_GRAPHS})"
+    if args.telemetry_dir not in (None, ""):
+        return (f"--telemetry-dir {args.telemetry_dir!r} is not ported ({NO_EVENT_STREAM}; "
+                f"{DURABILITY})")
+    if args.runs_root:
+        return f"--runs-root {args.runs_root!r} is not ported ({NO_EVENT_STREAM}; {DURABILITY})"
+    return _model_refusal(args)
+
+
+def _serve_config(args):
+    """The restore template's training config from the serve flags."""
+    from dib_tpu_torch.train import TrainConfig
+
+    return TrainConfig(batch_size=args.batch_size, beta_start=args.beta_start,
+                       beta_end=args.beta_end, optimizer=args.optimizer,
+                       warmup_steps=args.warmup_steps)
+
+
+def _prefork_command(device) -> tuple[str, ...] | None:
+    """The prefork workers' command when ``serve_main`` was given a device:
+    the serve entry point with that device (``None`` keeps
+    ``python -m dib_tpu_torch serve``, which runs on the GPU)."""
+    if device is None:
+        return None
+    return (sys.executable, "-c",
+            "import sys; from dib_tpu_torch.cli import main; "
+            f"sys.exit(main(['serve', *sys.argv[1:]], device={str(device)!r}))")
+
+
+def serve_main(argv: Sequence[str], device=None) -> int:
+    """``python -m dib_tpu_torch serve``; ``device`` (a Python argument, not
+    a flag) is where the engines run, ``None`` meaning every CUDA device
+    (``--num_devices`` of them); without a card it raises."""
+    argv = list(argv)
+    if argv and argv[0] == "top":
+        # attaches to a RUNNING fleet over HTTP: no serve flags, no torch
+        from dib_tpu_torch.serve.top import serve_top_main
+
+        return serve_top_main(argv[1:])
+    args = serve_parser().parse_args(argv)
+    if args.prefork > 0:
+        from dib_tpu_torch.serve.prefork import WORKER_COMMAND, supervise_prefork
+
+        return supervise_prefork(argv, prefork=args.prefork, host=args.host, port=args.port,
+                                 outdir=args.outdir, serve_seconds=args.serve_seconds,
+                                 command=_prefork_command(device) or WORKER_COMMAND)
+
+    import signal
+    import threading
+
+    import numpy as np
+
+    from dib_tpu_torch.device import resolve_device
+    from dib_tpu_torch.parallel import BetaSweepTrainer
+    from dib_tpu_torch.serve import (
+        DEFAULT_BUCKETS,
+        DIBServer,
+        ModelZoo,
+        TenantQuotas,
+        pool_router,
+    )
+    from dib_tpu_torch.serve.replicas import local_devices
+    from dib_tpu_torch.telemetry import MetricsRegistry
+    from dib_tpu_torch.train import DIBTrainer
+    from dib_tpu_torch.train.checkpoint import DIBCheckpointer
+
+    requested, device = device, resolve_device(device)
+    bundle = _bundle_from_args(args)
+    config = _serve_config(args)
+    buckets = list(args.buckets or DEFAULT_BUCKETS)
+    os.makedirs(args.outdir, exist_ok=True)
+    registry = MetricsRegistry()
+    zoo = ModelZoo(response_capacity=args.response_cache or None, registry=registry)
+    router_kwargs = dict(
+        batch_buckets=buckets, registry=registry, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
+        eject_after=args.eject_after, probe_after_s=args.probe_after_s,
+        probe_timeout_s=args.probe_timeout_s,
+    )
+    if args.sweep_beta_ends:
+        ends = np.repeat(np.asarray(args.sweep_beta_ends, np.float64), args.sweep_repeats)
+        model, _ = _model_from_args(args, bundle, device=device, replicas=len(ends))
+        sweep = BetaSweepTrainer(model, bundle, config, args.beta_start, ends, device=device)
+        router = zoo.add_sweep_checkpoint(args.model_name, args.checkpoint_dir, sweep,
+                                          **router_kwargs)
+    else:
+        model, y_encoder = _model_from_args(args, bundle, device=device)
+        trainer = DIBTrainer(model, bundle, config, y_encoder=y_encoder, device=device)
+        state, _, _ = DIBCheckpointer(args.checkpoint_dir).restore(trainer)
+        if args.workers > 0:
+            # engines in worker subprocesses, each on the device, behind the
+            # pipe request plane: request handling leaves this GIL
+            router = pool_router(state.params["model"], args.workers, device=device,
+                                 **router_kwargs)
+            zoo.register(args.model_name, router, checkpoint_dir=args.checkpoint_dir)
+        else:
+            devices = local_devices(requested)
+            if requested is None and args.num_devices > 0:
+                devices = devices[:args.num_devices]
+            router = zoo.add_params(args.model_name, state.params["model"], devices=devices,
+                                    checkpoint_dir=args.checkpoint_dir, **router_kwargs)
+
+    quotas = TenantQuotas(args.quota_rps, args.quota_burst) if args.quota_rps > 0 else None
+    server = DIBServer(zoo, host=args.host, port=args.port, registry=registry, quotas=quotas,
+                       admission_limit=args.admission_limit or None,
+                       reuse_port=args.reuse_port)
+    stop = threading.Event()
+    handlers = {}
+    if threading.current_thread() is threading.main_thread():
+        for signum in (signal.SIGINT, signal.SIGTERM):
+            handlers[signum] = signal.signal(signum, lambda *_: stop.set())
+    try:
+        server.start()
+        # machine-readable first line: callers read the bound port from here
+        print(json.dumps({
+            "serving": server.url, "port": server.port,
+            "replicas": len(router.entries), "run_dir": args.outdir,
+            "models": zoo.names(), "workers": args.workers,
+        }), flush=True)
+        stop.wait(args.serve_seconds if args.serve_seconds > 0 else None)
+    finally:
+        server.close()
+        for signum, handler in handlers.items():
+            signal.signal(signum, handler)
+    counters = registry.snapshot()["counters"]
+    print(json.dumps({
+        "served_requests": counters.get("serve.requests.ok", 0),
+        "batches": counters.get("serve.batches", 0),
+    }), flush=True)
+    return 0
+
+
 def main(argv: Sequence[str] | None = None, device=None) -> int:
     """``python -m dib_tpu_torch``; ``device`` (a Python argument, not a
-    flag) is where training runs, ``None`` meaning the GPU."""
+    flag) is where training or serving runs, ``None`` meaning the GPU."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "workload":
         return workload_main(argv[1:], device)
+    if argv and argv[0] == "serve":
+        return serve_main(argv[1:], device)
     if argv and argv[0] in REFUSED_SUBCOMMANDS:
         print(f"dib_tpu_torch: the {argv[0]!r} subcommand is not ported "
               f"({REFUSED_SUBCOMMANDS[argv[0]]})", file=sys.stderr)

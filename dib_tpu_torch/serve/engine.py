@@ -8,9 +8,18 @@
   - **Fixed batch buckets**: a request batch is padded to the nearest bucket,
     and rows beyond the top bucket run in top-bucket chunks. The forward pass
     runs eagerly; the JAX package's per-bucket AOT executables have no
-    counterpart yet.
+    counterpart yet. Where the JAX engine compiles every (op, bucket) at
+    construction, this one runs each once, so the device's lazy start
+    (CUDA's context, cuBLAS handles, kernel selection per shape) is paid
+    there and not by the first requests.
   - **Per-channel KL as a served quantity**: ``predict`` returns each
     example's per-feature KL (nats) beside the prediction.
+  - **Dispatch metrics**: with a ``registry`` each dispatch counts in
+    ``serve.dispatches.<op>`` and times in ``serve.dispatch_s.<op>``. The
+    interval ends after the host copy of the outputs, which synchronises
+    the device, so it is the dispatch's own time. The JAX package's
+    achieved-FLOP/s and bandwidth gauges come from XLA's cost analysis,
+    which has no counterpart here; they are left out.
 
 TF32 is switched off for matmuls and convolutions: the reference is full
 float32. The engine carries no queueing policy; that lives in
@@ -19,6 +28,7 @@ float32. The engine carries no queueing policy; that lives in
 
 from __future__ import annotations
 
+import time
 from typing import Sequence
 
 import numpy as np
@@ -42,9 +52,13 @@ class InferenceEngine:
       batch_buckets: padded batch sizes, ascending. Requests larger than the
         top bucket are dispatched in top-bucket chunks.
       device: where the model runs; ``None`` means the GPU.
+      registry: optional ``MetricsRegistry`` for the per-op dispatch count
+        and time.
+      beta_end: optional β label (a sweep member's annealing endpoint).
     """
 
-    def __init__(self, model, batch_buckets: Sequence[int] = DEFAULT_BUCKETS, device=None):
+    def __init__(self, model, batch_buckets: Sequence[int] = DEFAULT_BUCKETS, device=None,
+                 registry=None, beta_end: float | None = None):
         buckets = sorted(set(int(b) for b in batch_buckets))
         if not buckets or buckets[0] < 1:
             raise ValueError(f"batch_buckets must be positive, got {batch_buckets}")
@@ -53,14 +67,32 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.buckets = tuple(buckets)
+        self.registry = registry
+        self.beta_end = beta_end
         self.feature_width = int(sum(model.feature_dimensionalities))
         self.num_features = len(model.feature_dimensionalities)
+        self._warm_up()
 
     @classmethod
     def from_params(cls, model, flax_params, **kwargs) -> "InferenceEngine":
         """Engine over ``model`` loaded with a JAX package's Flax variables
         (a tree of numpy arrays, see :mod:`dib_tpu_torch.interop`)."""
         model.load_state_dict(interop.params_from_flax(flax_params))
+        return cls(model, **kwargs)
+
+    @classmethod
+    def from_state(cls, architecture: dict, state_dict: dict, **kwargs) -> "InferenceEngine":
+        """Engine over a ``DistributedIBModel`` rebuilt from its constructor
+        arguments (``model.architecture``) and a state dict (tensors or numpy
+        arrays): the recipe a pool worker process builds its engine from.
+        ``kwargs`` go to the engine; the model is built on its ``device``."""
+        from dib_tpu_torch.models import DistributedIBModel
+
+        device = resolve_device(kwargs.get("device"))
+        model = DistributedIBModel(**architecture, device=device,
+                                   generator=torch.Generator())   # overwritten below
+        model.load_state_dict({name: torch.as_tensor(value)
+                               for name, value in state_dict.items()})
         return cls(model, **kwargs)
 
     @classmethod
@@ -96,6 +128,16 @@ class InferenceEngine:
         mus, logvars = self.model.encode(x)                  # [F, B, d] each
         return {"mus": mus.transpose(0, 1), "logvars": logvars.transpose(0, 1)}
 
+    def _warm_up(self) -> None:
+        """One forward pass per (op, bucket) on zeros, outside the metrics."""
+        with torch.inference_mode():
+            for bucket in self.buckets:
+                x = torch.zeros((bucket, self.feature_width), device=self.device)
+                self._predict_fn(x)
+                self._encode_fn(x)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def bucket_for(self, n: int) -> int:
         """Smallest bucket holding ``n`` rows (top bucket if none)."""
         for bucket in self.buckets:
@@ -129,8 +171,18 @@ class InferenceEngine:
         x_pad[:n] = x
         fn = self._predict_fn if op == "predict" else self._encode_fn
         with torch.inference_mode():
+            t0 = time.perf_counter()
             out = fn(torch.from_numpy(x_pad).to(self.device))
-            return {k: v[:n].cpu().numpy() for k, v in out.items()}
+            # the host copy synchronises the device: the interval is the dispatch
+            out = {k: v[:n].cpu().numpy() for k, v in out.items()}
+            self._observe(op, time.perf_counter() - t0)
+            return out
+
+    def _observe(self, op: str, seconds: float) -> None:
+        if self.registry is None:
+            return
+        self.registry.counter(f"serve.dispatches.{op}").inc()
+        self.registry.histogram(f"serve.dispatch_s.{op}").record(seconds)
 
     # ----------------------------------------------------------- public API
     def predict(self, x) -> dict:

@@ -68,7 +68,7 @@ def test_parser_keeps_every_jax_flag_and_default():
         assert port[action.dest].default == action.default, action.dest
         assert port[action.dest].option_strings == action.option_strings, action.dest
     assert set(cli.REFUSED_FLAGS) <= {a.dest for a in jax_actions}
-    assert set(cli.REFUSED_SUBCOMMANDS) | {"train", "workload"} == set(
+    assert set(cli.REFUSED_SUBCOMMANDS) | {"train", "workload", "serve"} == set(
         next(a for a in jax_actions if a.dest == "command").choices)
     args = cli.build_parser().parse_args([])
     want = jax_cli.build_parser().parse_args([])
@@ -99,7 +99,8 @@ def test_unported_flags_are_refused_at_parse_time(monkeypatch, capsys, argv, env
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "--checkpoint_dir", "x"], ["lint"], ["ckpt", "scrub", "x"], ["telemetry"],
+    ["serve", "--checkpoint_dir", "x", "--telemetry-dir", "events"], ["lint"],
+    ["ckpt", "scrub", "x"], ["telemetry"],
     ["workload", "boolean"], ["workload", "chaos"],
 ])
 def test_unported_subcommands_are_refused(capsys, argv):

@@ -344,3 +344,49 @@ def test_flash_kernel_holds_scores_of_1e8_on_card(cuda_device, dtype, tol):
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, attention.flash_self_attention_reference(q, k, v),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_http_server_on_card_matches_the_direct_engine(cuda_device):
+    """``DIBServer`` over a model on the card: concurrent HTTP requests of 1
+    to 20 rows answer as the direct engine does, within 1e-6 (the batcher
+    only pads and splits rows; the forward pass is row-independent)."""
+    import json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from dib_tpu_torch.models import DistributedIBModel
+    from dib_tpu_torch.serve import DIBServer, InferenceEngine, ReplicaRouter
+
+    model = DistributedIBModel((1,) * 10, (128, 128), (256, 256), 1, 32, device=cuda_device,
+                               generator=torch.Generator().manual_seed(0))
+    direct = InferenceEngine(model, batch_buckets=(1, 8), device=cuda_device)
+    router = ReplicaRouter.from_params(model, devices=[cuda_device], batch_buckets=(1, 8),
+                                       max_batch=8, max_wait_ms=1.0)
+    server = DIBServer(router).start()
+    rows = np.random.default_rng(0).integers(0, 2, (20, 10)).astype(np.float32)
+    answers = {}
+
+    def client(n):
+        request = urllib.request.Request(
+            server.url + "/v1/predict", data=json.dumps({"x": rows[:n].tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(request, timeout=60) as resp:
+            answers[n] = json.loads(resp.read())
+
+    try:
+        threads = [threading.Thread(target=client, args=(n,)) for n in (1, 3, 8, 20)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        server.close()
+    want = direct.predict(rows)
+    assert sorted(answers) == [1, 3, 8, 20]
+    for n, payload in answers.items():
+        assert payload["replica"]["device"].startswith("cuda")
+        for key in ("prediction", "kl_per_feature"):
+            np.testing.assert_allclose(payload[key], want[key][:n], rtol=1e-6, atol=1e-6)

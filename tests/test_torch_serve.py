@@ -184,4 +184,4 @@ def test_batcher_error_isolation_and_validation():
     batcher.close()
     assert not batcher.is_alive()
     with pytest.raises(NotImplementedError):
-        MicroBatcher(_StubEngine(), registry=object())
+        MicroBatcher(_StubEngine(), tracer=object())
