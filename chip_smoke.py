@@ -112,8 +112,26 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      process publishes on ``/metrics``, read before SIGTERM (the pool's
      engine subprocesses publish none); SIGTERM ends each with exit 0, the
      single process's summary counting every request it served
- 14. one JSON line listing each ported kernel
- 15. the last line: ``{"ok": true, "device": {...}}``
+ 14. main path 9, training that survives faults and reports them, every
+     event stream read back under the strict schema: (a) the flagship at
+     full width, 4 chunks of one epoch with the MI hook and a checkpoint
+     each, ``nan@chunk2``: rolled back and replayed, its history, MI
+     bounds, weights and Adam moments equal the uninterrupted fit's bit
+     for bit; a poison that the checkpoint holds raises after its
+     rollbacks; (b) the 8-member sweep at phase 9's widths, member 5
+     poisoned once: healed, all eight bit for bit the uninterrupted sweep;
+     poisoned in every restore (``PoisonedReplicaRestore``): ejected, the
+     other seven bit for bit; (c) ``InfoPerFeatureHook`` and
+     ``SweepInfoPerFeatureHook`` with ``overlap=True`` against
+     ``overlap=False``: bounds and history bit for bit, each call's exposed
+     host time, and the profiler's count of ``mi_row_stats`` kernels off
+     the training stream; (d) ``python -m dib_tpu_torch train --watchdog``
+     at phase 12's cuts with a checkpoint per epoch and
+     ``DIB_FAULT_PLAN=stall@chunk2:30s,kill@chunk4``: exit 0 after a stall
+     kill and a crash restart, ``history.npz`` bit for bit the
+     uninterrupted run's; the seconds from detection to recovery of each
+ 15. one JSON line listing each ported kernel
+ 16. the last line: ``{"ok": true, "device": {...}}``
 
 Without a CUDA device it exits nonzero before printing any result.
 """
@@ -133,6 +151,7 @@ import tempfile
 import threading
 import time
 import types
+import warnings
 
 import numpy as np
 import torch
@@ -2606,6 +2625,471 @@ def drive_http(card, serial_ckpt, sweep_ckpt, tmp):
 
 
 # --------------------------------------------------------------------------
+# phase 14: main path 9, training that survives faults and reports them
+
+FAULT_EPOCHS = 4             # the serial rollback: 4 chunks of one epoch of 10 steps
+QUARANTINE_EPOCHS = 3        # the sweep's quarantine: 3 chunks of one epoch of 5 steps
+POISONED = 5                 # the sweep member poisoned
+OVERLAP_EPOCHS = 5           # the overlapped hooks: one call per epoch
+WATCHDOG_PLAN = "stall@chunk2:30s,kill@chunk4"
+WATCHDOG_FLOOR_S = "5"
+# phase 12's cuts with a checkpoint at every epoch: 12 chunks, so the kill
+# at the relaunch's 4th boundary comes before the end
+WATCHDOG_CUTS = ["--checkpoint_frequency", "1"]
+RESULTS = ("beta", "kl_per_feature", "loss", "val_loss", "metric", "val_metric")
+
+
+def reset_launches():
+    from dib_tpu_torch.ops import attention, density
+
+    density.mi_row_stats_launches = 0
+    attention.flash_attention_launches = 0
+    attention.flash_attention_bf16_launches = 0
+    density.log_density_mat_launches = 0
+
+
+def read_launches() -> dict:
+    from dib_tpu_torch.ops import attention, density
+
+    torch.cuda.synchronize()
+    return {"mi_row_stats": density.mi_row_stats_launches,
+            "flash_attention": attention.flash_attention_launches,
+            "flash_attention_bf16": attention.flash_attention_bf16_launches,
+            "log_density_mat": density.log_density_mat_launches}
+
+
+def add_launches(*runs) -> dict:
+    return {name: sum(r[name] for r in runs) for name in runs[0]}
+
+
+def read_stream(label, directory):
+    """The run's events.jsonl, every record valid under the port's strict
+    schema (a known kind, its envelope and its required fields)."""
+    from dib_tpu_torch.telemetry import read_events, validate_event
+
+    events = list(read_events(directory))
+    for event in events:
+        problems = validate_event(event)
+        if problems:
+            fail(f"{label}: event {event.get('seq')} of {directory} is not valid: {problems}")
+    return events
+
+
+def same_records(label, got, want, members=None):
+    """History records equal bit for bit (a list for a sweep)."""
+    pairs = [(got, want)] if members is None else [(got[r], want[r]) for r in members]
+    for i, (g, w) in enumerate(pairs):
+        for name in RESULTS:
+            if not np.array_equal(getattr(g, name), getattr(w, name)):
+                fail(f"{label}: {'' if members is None else f'member {members[i]}: '}{name} "
+                     f"differs from the uninterrupted run's")
+
+
+def same_state(label, got, want, members=None):
+    """Every weight leaf and Adam moment equal bit for bit (the members'
+    slices of a sweep's stacked leaves)."""
+    model, want_model = got.params["model"], want.params["model"]
+    for (name, param), ref in zip(model.named_parameters(), want_model.parameters()):
+        pairs = [(param, ref)] + [(got.optimizer.state[param][slot],
+                                   want.optimizer.state[ref][slot])
+                                  for slot in ("exp_avg", "exp_avg_sq")]
+        for a, b in pairs:
+            views = [(a, b)] if members is None else [
+                (model.member_values(name, a, r), model.member_values(name, b, r))
+                for r in members]
+            if not all(torch.equal(x, y) for x, y in views):
+                fail(f"{label}: {name} (or its Adam moments) differs from the uninterrupted "
+                     f"run's")
+    return sum(1 for _ in model.parameters())
+
+
+def seconds_between(events, first, then):
+    """Seconds from the first event matching ``first`` to the next one
+    after it matching ``then`` (event predicates)."""
+    start = next(i for i, e in enumerate(events) if first(e))
+    end = next(e for e in events[start + 1:] if then(e))
+    return end["t"] - events[start]["t"]
+
+
+def drive_rollback(card, flagship, tmp):
+    """(a) The serial rollback at full width: the flagship, 4 chunks of one
+    epoch with the MI hook and a checkpoint at each, ``nan@chunk2``
+    against the same fit without it; then a poison the checkpoint holds."""
+    from dib_tpu_torch.faults import FaultPlan, poison_params
+    from dib_tpu_torch.telemetry import EventWriter
+    from dib_tpu_torch.train import CheckpointHook, DIBCheckpointer, DIBTrainer, InfoPerFeatureHook
+    from dib_tpu_torch.workloads import build_model
+
+    config, train_config, bundle = (flagship[k] for k in ("config", "train_config", "bundle"))
+
+    def run(name, plan=None, poison_at=None):
+        model = build_model(config, device="cuda", generator=torch.Generator().manual_seed(SEED),
+                            use_flash=True)
+        trainer = DIBTrainer(model, bundle, train_config)
+        hook = InfoPerFeatureHook(config.mi_eval_batch_size, config.mi_eval_batches, seed=SEED)
+        hooks = [hook, CheckpointHook(DIBCheckpointer(os.path.join(tmp, name, "ckpt")))]
+        if poison_at is not None:      # before the checkpoint hook: the step holds the poison
+            def poison(tr, st, epoch):
+                if epoch == poison_at:
+                    poison_params(st.params, float("nan"))
+
+            hooks.insert(1, poison)
+        writer = EventWriter(os.path.join(tmp, name))
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                state, history = trainer.fit(
+                    torch.Generator(device="cuda").manual_seed(SEED), num_epochs=FAULT_EPOCHS,
+                    hooks=hooks, hook_every=1, telemetry=writer,
+                    fault_plan=FaultPlan.parse(plan) if plan else None)
+        finally:
+            writer.close()
+        wall = time.perf_counter() - t0
+        return dict(state=state, history=history, hook=hook, launches=read_launches(),
+                    wall_s=wall, events=read_stream(f"rollback {name}", os.path.join(tmp, name)))
+
+    clean = run("clean")
+    faulted = run("faulted", plan="nan@chunk2")
+    same_records("serial rollback", faulted["history"], clean["history"])
+    leaves = same_state("serial rollback", faulted["state"], clean["state"])
+    if faulted["hook"].records != clean["hook"].records:
+        fail("serial rollback: the MI bounds differ from the uninterrupted run's")
+    events = faulted["events"]
+    kinds = [e["type"] for e in events]
+    (mitigation,) = [e for e in events if e["type"] == "mitigation"]
+    faults = [e for e in events if e["type"] == "fault"]
+    if (mitigation["mtype"], mitigation["epoch"], mitigation["restored_epoch"]) != \
+            ("divergence_rollback", 3, 2) or [(f["kind"], f["chunk"]) for f in faults] != \
+            [("nan", 2)] or kinds.count("chunk") != FAULT_EPOCHS + 1 or \
+            kinds.count("span") < FAULT_EPOCHS + 1 or not any(
+                e["type"] == "heartbeat" and e["phase"] == "boundary" for e in events):
+        fail(f"serial rollback: events {kinds}, mitigation {mitigation}")
+    blocks = len(faulted["state"].params["model"].aggregator.blocks)
+    chunks = FAULT_EPOCHS + 1
+    want = {"flash_attention": blocks * chunks * (train_config.steps_per_epoch + 1),
+            "mi_row_stats": config.mi_eval_batches * FAULT_EPOCHS}
+    if any(faulted["launches"][k] != v for k, v in want.items()):
+        fail(f"serial rollback: launches {faulted['launches']}, expected {want}")
+    to_restored = seconds_between(events, lambda e: e["type"] == "anomaly",
+                                  lambda e: e["type"] == "mitigation")
+    to_resumed = seconds_between(events, lambda e: e["type"] == "anomaly",
+                                 lambda e: e["type"] == "chunk")
+    try:
+        run("recurs", poison_at=2)
+        fail("serial rollback: a poison the checkpoint holds did not raise")
+    except RuntimeError as exc:
+        if "diverged again at epoch 3" not in str(exc):
+            raise
+    recurs = read_stream("rollback recurs", os.path.join(tmp, "recurs"))
+    ckpt = DIBCheckpointer(os.path.join(tmp, "clean", "ckpt"))
+    trainer = DIBTrainer(build_model(config, device="cuda", use_flash=True,
+                                     generator=torch.Generator().manual_seed(SEED)),
+                         bundle, train_config)
+    restore_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ckpt.restore(trainer)
+        torch.cuda.synchronize()
+        restore_ms.append(1e3 * (time.perf_counter() - t0))
+    rollbacks = sum(e["type"] == "mitigation" for e in recurs)
+    quarantined = sum(e["type"] == "quarantine" for e in recurs)
+    print(f"main path launches (serial rollback, {FAULT_EPOCHS} chunks and 1 replayed, "
+          f"{FAULT_EPOCHS} MI hook calls): {json.dumps(faulted['launches'])}")
+    print(f"serial rollback: nan@chunk2 on the flagship at full width, {FAULT_EPOCHS} chunks "
+          f"of {train_config.steps_per_epoch} steps with the MI hook and a checkpoint each: "
+          f"rolled back at epoch 3 to epoch 2 and replayed; the history, the MI bounds and "
+          f"all {leaves} weight leaves with their Adam moments equal the uninterrupted run's "
+          f"bit for bit; {len(events)} events ({', '.join(sorted(set(kinds)))}) valid under "
+          f"the strict schema; a poison the checkpoint holds raised after {rollbacks} "
+          f"rollbacks and {quarantined} quarantined steps")
+    print(f"timing [{card}] serial rollback: detection to restored {to_restored:.4f} s, to "
+          f"the replayed chunk's end {to_resumed:.4f} s; fits {clean['wall_s']:.3f} s clean, "
+          f"{faulted['wall_s']:.3f} s with the rollback (host clock, one run each); one "
+          f"DIBCheckpointer.restore of the flagship's step {statistics.median(restore_ms):.4f} "
+          f"ms (median of 3, warm page cache)")
+    return dict(launches=add_launches(clean["launches"], faulted["launches"]),
+                to_restored=to_restored, to_resumed=to_resumed)
+
+
+def drive_quarantine(card, sweep_run, tmp):
+    """(b) The 8-member sweep at phase 9's widths, 3 chunks of one epoch
+    with a checkpoint each: member 5 poisoned once is healed (all eight
+    equal the uninterrupted sweep bit for bit); poisoned in every restore
+    it is ejected (the other seven equal it bit for bit)."""
+    from dib_tpu_torch.faults import FaultPlan, PoisonedReplicaRestore
+    from dib_tpu_torch.parallel import BetaSweepTrainer, member_seed
+    from dib_tpu_torch.telemetry import EventWriter
+    from dib_tpu_torch.train import CheckpointHook, DIBCheckpointer
+    from dib_tpu_torch.workloads import build_model
+
+    config, bundle = sweep_run["config"], sweep_run["bundle"]
+    ends = np.logspace(-2, 0, 8)
+    seeds = [member_seed(SEED, r) for r in range(len(ends))]
+
+    def run(name, plan=None, poison_restores=False):
+        model = build_model(config, device="cuda", replicas=len(ends), use_flash=True,
+                            generator=[torch.Generator().manual_seed(s) for s in seeds])
+        sweep = BetaSweepTrainer(model, bundle, config.train_config(SWEEP_STEPS_PER_EPOCH),
+                                 config.beta_start, ends)
+        writer = EventWriter(os.path.join(tmp, name))
+        ckpt = DIBCheckpointer(os.path.join(tmp, name, "ckpt"))
+        if poison_restores:
+            ckpt = PoisonedReplicaRestore(ckpt, POISONED, telemetry=writer)
+        reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            states, records = sweep.fit(
+                [torch.Generator(device="cuda").manual_seed(s) for s in seeds],
+                num_epochs=QUARANTINE_EPOCHS, hooks=[CheckpointHook(ckpt)], hook_every=1,
+                telemetry=writer, fault_plan=FaultPlan.parse(plan) if plan else None)
+        writer.close()
+        wall = time.perf_counter() - t0
+        return dict(sweep=sweep, states=states, records=records, launches=read_launches(),
+                    wall_s=wall, events=read_stream(f"quarantine {name}",
+                                                    os.path.join(tmp, name)))
+
+    plan = f"replica_nan@chunk2:{POISONED}"
+    clean = run("sweep_clean")
+    healed = run("sweep_healed", plan)
+    ejected = run("sweep_ejected", plan, poison_restores=True)
+    everyone, others = list(range(len(ends))), [r for r in range(len(ends)) if r != POISONED]
+    same_records("sweep quarantine (healed)", healed["records"], clean["records"], everyone)
+    leaves = same_state("sweep quarantine (healed)", healed["states"], clean["states"], everyone)
+    same_records("sweep quarantine (ejected)", ejected["records"], clean["records"], others)
+    same_state("sweep quarantine (ejected)", ejected["states"], clean["states"], others)
+    incidents = {name: [(e["type"], e.get("mtype") or e.get("kind"), e.get("replica"))
+                        for e in r["events"] if e["type"] in ("fault", "mitigation")]
+                 for name, r in (("healed", healed), ("ejected", ejected))}
+    want = {"healed": [("fault", "replica_nan", POISONED),
+                       ("mitigation", "divergence_rollback", POISONED)],
+            "ejected": [("fault", "replica_nan", POISONED), ("fault", "replica_nan", POISONED),
+                        ("mitigation", "replica_ejected", POISONED)]}
+    if incidents != want or healed["sweep"].ejected_replicas or \
+            list(ejected["sweep"].ejected_replicas) != [POISONED] or \
+            [r.ejected for r in ejected["records"]] != [r == POISONED for r in everyone]:
+        fail(f"sweep quarantine: incidents {incidents}, ejected "
+             f"{ejected['sweep'].ejected_replicas}")
+    blocks = len(clean["states"].params["model"].aggregator.blocks)
+    per_epoch = blocks * (SWEEP_STEPS_PER_EPOCH + 1)
+    if clean["launches"]["flash_attention"] != per_epoch * QUARANTINE_EPOCHS or any(
+            r["launches"]["flash_attention"] != per_epoch * (QUARANTINE_EPOCHS + 1)
+            for r in (healed, ejected)):
+        fail(f"sweep quarantine: flash launches {[r['launches'] for r in (clean, healed, ejected)]}"
+             f", expected {per_epoch} per epoch and one epoch replayed")
+    heal_s = seconds_between(healed["events"], lambda e: e["type"] == "chunk" and e["epoch"] == 3,
+                             lambda e: e["type"] == "mitigation")
+    print(f"main path launches (sweep quarantine, {QUARANTINE_EPOCHS} epochs clean, healed and "
+          f"ejected, each replay one epoch at R = 8): "
+          f"{json.dumps(add_launches(clean['launches'], healed['launches'], ejected['launches']))}")
+    print(f"sweep quarantine: member {POISONED} poisoned at chunk 2 of 8 was healed by one "
+          f"restore and a replay at R = 8: all 8 members' records, {leaves} stacked weight "
+          f"leaves and Adam moments equal the uninterrupted sweep bit for bit; poisoned in every "
+          f"restore it was ejected ({ejected['sweep'].ejected_replicas[POISONED]['reason']}) and "
+          f"the other 7 equal it bit for bit; events valid under the strict schema")
+    print(f"timing [{card}] sweep quarantine: the poisoned boundary's chunk event to the heal's "
+          f"mitigation {heal_s:.4f} s (restore, replay of one epoch at R = 8, splice); sweeps "
+          f"{clean['wall_s']:.3f} s clean, {healed['wall_s']:.3f} s healed, "
+          f"{ejected['wall_s']:.3f} s ejected (host clock)")
+    return dict(launches=add_launches(clean["launches"], healed["launches"],
+                                      ejected["launches"]), heal_s=heal_s)
+
+
+def side_stream_row_stats(trace_path) -> dict:
+    """From a chrome trace: the stream of the flash kernels (the training
+    stream) and the count of ``mi_row_stats``' kernels on each stream."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    training = {e["args"]["stream"] for e in kernels if "flash_attention" in e["name"]}
+    row_stats = [e["args"]["stream"] for e in kernels
+                 if any(k in e["name"] for k in ("row_stats_kernel", "stage_kernel",
+                                                 "merge_kernel"))]
+    side = sum(1 for s in row_stats if s not in training)
+    return {"training_streams": sorted(training), "row_stats_kernels": len(row_stats),
+            "on_another_stream": side}
+
+
+def drive_overlap(card, flagship, sweep_run, tmp):
+    """(c) ``InfoPerFeatureHook`` and ``SweepInfoPerFeatureHook`` with
+    ``overlap=True`` against ``overlap=False``: bounds and training history
+    bit for bit; each hook call's exposed host time both ways; the
+    profiler's count of ``mi_row_stats`` kernels off the training stream."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from dib_tpu_torch.parallel import BetaSweepTrainer, SweepInfoPerFeatureHook, member_seed
+    from dib_tpu_torch.train import DIBTrainer, InfoPerFeatureHook
+    from dib_tpu_torch.workloads import build_model
+
+    config, bundle = flagship["config"], flagship["bundle"]
+    train_config = dataclasses.replace(config, num_steps=OVERLAP_EPOCHS * STEPS_PER_EPOCH
+                                       ).train_config(STEPS_PER_EPOCH)
+    sweep_config, sweep_bundle = sweep_run["config"], sweep_run["bundle"]
+    sweep_config = dataclasses.replace(sweep_config,
+                                       num_steps=OVERLAP_EPOCHS * SWEEP_STEPS_PER_EPOCH)
+    ends = np.logspace(-2, 0, 8)
+    seeds = [member_seed(SEED, r) for r in range(len(ends))]
+
+    def fit(kind, overlap, profiled=False):
+        if kind == "serial":
+            model = build_model(config, device="cuda", use_flash=True,
+                                generator=torch.Generator().manual_seed(SEED))
+            trainer = DIBTrainer(model, bundle, train_config)
+            hook = InfoPerFeatureHook(config.mi_eval_batch_size, config.mi_eval_batches,
+                                      seed=SEED, overlap=overlap)
+            draws = torch.Generator(device="cuda").manual_seed(SEED)
+        else:
+            model = build_model(sweep_config, device="cuda", replicas=len(ends), use_flash=True,
+                                generator=[torch.Generator().manual_seed(s) for s in seeds])
+            trainer = BetaSweepTrainer(model, sweep_bundle,
+                                       sweep_config.train_config(SWEEP_STEPS_PER_EPOCH),
+                                       sweep_config.beta_start, ends)
+            hook = SweepInfoPerFeatureHook(sweep_config.mi_eval_batch_size,
+                                           sweep_config.mi_eval_batches, seed=SEED,
+                                           overlap=overlap)
+            draws = [torch.Generator(device="cuda").manual_seed(s) for s in seeds]
+        exposed = []
+
+        def timed(tr, st, epoch):
+            t0 = time.perf_counter()
+            hook(tr, st, epoch)
+            exposed.append(time.perf_counter() - t0)
+
+        reset_launches()
+        context = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                   if profiled else contextlib.nullcontext(None))
+        with context as prof:
+            _, history = trainer.fit(draws, num_epochs=OVERLAP_EPOCHS, hooks=[timed],
+                                     hook_every=1)
+            t0 = time.perf_counter()
+            records = hook.records            # collects the last overlapped call
+            exposed[-1] += time.perf_counter() - t0
+            torch.cuda.synchronize()
+        launches = read_launches()
+        streams = None
+        if profiled:
+            path = os.path.join(tmp, f"overlap_{kind}.json")
+            prof.export_chrome_trace(path)
+            streams = side_stream_row_stats(path)
+        return dict(history=history, records=records, exposed=exposed, launches=launches,
+                    streams=streams)
+
+    results, launches = {}, []
+    for kind in ("serial", "sweep"):
+        plain, overlapped = fit(kind, False), fit(kind, True)
+        profiled = fit(kind, True, profiled=True)
+        for label, got in (("overlapped", overlapped), ("profiled", profiled)):
+            same_records(f"overlap {kind} ({label})", got["history"], plain["history"],
+                         None if kind == "serial" else list(range(len(ends))))
+            if len(got["records"]) != OVERLAP_EPOCHS or not all(
+                    g["epoch"] == w["epoch"] and np.array_equal(g["bounds"], w["bounds"])
+                    for g, w in zip(got["records"], plain["records"])):
+                fail(f"overlap {kind} ({label}): the MI bounds differ from overlap=False")
+        streams = profiled["streams"]
+        if streams["row_stats_kernels"] == 0 or streams["on_another_stream"] == 0 or \
+                len(streams["training_streams"]) != 1:
+            fail(f"overlap {kind}: no mi_row_stats kernel ran off the training stream: {streams}")
+        launches += [plain["launches"], overlapped["launches"], profiled["launches"]]
+        # the first overlapped call builds the shadow model and the side
+        # stream; the last one also waits for its own measurement
+        results[kind] = {"plain_ms": 1e3 * statistics.median(plain["exposed"][1:-1]),
+                         "overlapped_ms": 1e3 * statistics.median(overlapped["exposed"][1:-1]),
+                         "streams": streams}
+        print(f"overlap {kind}: overlap=True equals overlap=False bit for bit (the bounds of "
+              f"{OVERLAP_EPOCHS} calls and the training history); profiler: "
+              f"{streams['on_another_stream']} of {streams['row_stats_kernels']} mi_row_stats "
+              f"kernels ran off the training stream {streams['training_streams']}")
+        print(f"timing [{card}] overlap {kind} hook, exposed host time per call (median of "
+              f"calls 2-{OVERLAP_EPOCHS - 1}): overlap=False {results[kind]['plain_ms']:.4f} ms, "
+              f"overlap=True {results[kind]['overlapped_ms']:.4f} ms; every call (the first "
+              f"overlapped one builds the shadow, the last also collects itself) "
+              f"{[round(1e3 * s, 4) for s in plain['exposed']]} vs "
+              f"{[round(1e3 * s, 4) for s in overlapped['exposed']]} ms")
+    total = add_launches(*launches)
+    print(f"main path launches (overlapped hooks, {OVERLAP_EPOCHS} epochs each, serial and "
+          f"sweep, plain / overlapped / profiled): {json.dumps(total)}")
+    return dict(launches=total, results=results)
+
+
+def drive_watchdog(card, tmp):
+    """(d) ``python -m dib_tpu_torch train --watchdog`` at the CLI's
+    defaults, cut as in phase 12 with a checkpoint at every epoch, with
+    ``DIB_FAULT_PLAN=stall@chunk2:30s,kill@chunk4``, against the same
+    command in process without the watchdog and the faults."""
+    whole, run = os.path.join(tmp, "wd_whole"), os.path.join(tmp, "wd_run")
+    summary, launches, whole_s = cli_in_process(cli_argv(whole, whole + "_ckpt",
+                                                         *WATCHDOG_CUTS))
+    argv = cli_argv(run, run + "_ckpt", *WATCHDOG_CUTS, "--watchdog", "--watchdog_floor_s",
+                    WATCHDOG_FLOOR_S)
+    env = dict(os.environ, DIB_FAULT_PLAN=WATCHDOG_PLAN,
+               PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([*CLI_COMMAND, *argv], cwd=ROOT, env=env, text=True,
+                          capture_output=True, timeout=CLI_TIMEOUT)
+    watchdog_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"watchdog: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])["watchdog"]
+    kinds = [m["type"] for m in report["mitigations"]]
+    if report["returncode"] != 0 or report["launches"] != 3 or \
+            kinds != ["stall_kill", "crash_restart"]:
+        fail(f"watchdog: report {report}")
+    same_files("watchdog", run, whole, ["history.npz"])
+    events = read_stream("watchdog", run)
+    faults = [e["kind"] for e in events if e["type"] == "fault"]
+    mitigations = [(e["mtype"], (e.get("tags") or {}).get("src")) for e in events
+                   if e["type"] == "mitigation"]
+    starts = [e for e in events if e["type"] == "run_start"]
+    if faults != ["stall", "kill"] or mitigations != [("stall_kill", "supervisor"),
+                                                      ("crash_restart", "supervisor")] or \
+            len(starts) != 3 or events[-1]["type"] != "run_end" or \
+            len({e["run"] for e in events}) != 1:
+        fail(f"watchdog: faults {faults}, mitigations {mitigations}, {len(starts)} run_start")
+    stall = next(e for e in events if e["type"] == "fault" and e["kind"] == "stall")
+    kill = next(e for e in events if e["type"] == "mitigation")
+    relaunch = starts[1]
+    first_chunk = next(e for e in events[events.index(relaunch):] if e["type"] == "chunk")
+    stall_to_kill, kill_to_start = kill["t"] - stall["t"], relaunch["t"] - kill["t"]
+    stall_to_chunk = first_chunk["t"] - stall["t"]
+    print(f"main path launches (watchdog's uninterrupted run in process, {CLI_EPOCHS} "
+          f"epochs): {json.dumps(launches)}")
+    print(f"watchdog: python -m dib_tpu_torch train --watchdog --watchdog_floor_s "
+          f"{WATCHDOG_FLOOR_S}, DIB_FAULT_PLAN={WATCHDOG_PLAN}: exit 0 after "
+          f"{report['launches']} launches, mitigations {json.dumps(report['mitigations'])}; "
+          f"history.npz equals the uninterrupted run's bit for bit; {len(events)} events of "
+          f"one run id valid under the strict schema")
+    print(f"timing [{card}] watchdog: stall to kill {stall_to_kill:.3f} s (floor "
+          f"{WATCHDOG_FLOOR_S} s), kill to the relaunch's run_start {kill_to_start:.3f} s, "
+          f"stall to the relaunch's first chunk {stall_to_chunk:.3f} s; supervised run "
+          f"{watchdog_s:.3f} s, in process without faults {whole_s:.3f} s (host clock)")
+    return dict(launches=launches, stall_to_kill=stall_to_kill,
+                stall_to_chunk=stall_to_chunk)
+
+
+def drive_durability(card, flagship, sweep_run):
+    """Phase 14: (a) the serial rollback, (b) the sweep's quarantine, (c) the
+    overlapped hooks, (d) the watchdog; event streams in strict mode."""
+    os.environ["DIB_TELEMETRY_STRICT"] = "1"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as tmp:
+            t0 = time.perf_counter()
+            rollback = drive_rollback(card, flagship, tmp)
+            quarantine = drive_quarantine(card, sweep_run, tmp)
+            overlap = drive_overlap(card, flagship, sweep_run, tmp)
+            watchdog = drive_watchdog(card, tmp)
+            print(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    finally:
+        os.environ.pop("DIB_TELEMETRY_STRICT", None)
+    return dict(launches=add_launches(rollback["launches"], quarantine["launches"],
+                                      overlap["launches"], watchdog["launches"]),
+                rollback=rollback, quarantine=quarantine, overlap=overlap, watchdog=watchdog)
+
+
+# --------------------------------------------------------------------------
 # phase 10: main path 4, the kernel microbench
 
 def run_microbench():
@@ -2909,7 +3393,7 @@ def main() -> int:
     flash_err, flash_bf16_err = check_flash()
     density_errs = check_log_density_mat()
 
-    # ---- 4-10, 12 and 13. main paths and their checks ------------------
+    # ---- 4-10 and 12-14. main paths and their checks -------------------
     serving = serve_and_query()
     flagship = train_flagship()
     paths_step = compare_paths(flagship)
@@ -2922,6 +3406,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         cli_run = drive_cli(card, sweep_run, tmp)
         http_run = drive_http(card, cli_run["serial_ckpt"], cli_run["sweep_ckpt"], tmp)
+    durability = drive_durability(card, flagship, sweep_run)
     bench_launches = run_microbench()
 
     # ---- 11. timings ---------------------------------------------------
@@ -2985,10 +3470,10 @@ def main() -> int:
           f"(host clock, one run); probe hook {probe_ms:.4f} ms per call")
     time_sweep(card, sweep_run, northstar, paths_step, flagship)
 
-    # ---- 14-15. summary lines ------------------------------------------
+    # ---- 15-16. summary lines ------------------------------------------
     runs = (serving["launches"], flagship["launches"], driver["launches"],
             sweep_run["launches"], northstar["launches"], cli_run["launches"],
-            http_run["launches"], bench_launches)
+            http_run["launches"], durability["launches"], bench_launches)
     total = {name: sum(r.get(name, 0) for r in runs)
              for name in ("mi_row_stats", "flash_attention", "flash_attention_bf16",
                           "log_density_mat")}

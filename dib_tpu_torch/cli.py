@@ -7,18 +7,27 @@
 program; ``--checkpoint_dir`` saves every ``--checkpoint_frequency`` epochs
 and resumes when the directory holds a checkpoint, and SIGTERM/SIGINT
 finish the chunk in flight, write a chunk-aligned checkpoint and exit with
-75. ``workload amorphous|amorphous_protocols`` runs the flagship drivers.
+75. It writes the run's event stream (``events.jsonl``) into the run
+directory unless ``--telemetry-dir ''`` (or another directory) is given,
+fires the faults of ``DIB_FAULT_PLAN`` at chunk boundaries (fired-once
+marks in the run directory), rolls back a diverged run to its newest
+intact checkpoint, and with ``--watchdog`` relaunches itself as a worker
+under a supervisor that kills a stalled worker and relaunches a dead one
+(``train/watchdog.py``). ``workload amorphous|amorphous_protocols`` runs
+the flagship drivers (``--telemetry-dir`` brackets the run with
+``run_start`` and ``run_end``).
 ``serve`` serves a checkpoint that ``train`` wrote over the JSON HTTP API of
 :mod:`dib_tpu_torch.serve` (serially or a sweep's β-labeled members; in
 process, behind ``--workers`` engine subprocesses, or as a ``--prefork``
 fleet), and ``serve top`` watches a running fleet.
 
 What the port does not implement is refused before any training, with one
-line naming its item in ROADMAP.md, never ignored: the watchdog, the
-heartbeat, fault plans (``DIB_FAULT_PLAN``), the event stream
-(``--telemetry-dir``, ``--runs-root``), meshes (``--mesh_*``, ``--engine
-shard_map``), the other subcommands and workloads, datasets the port's
-registry lacks, and serve's ``--exec_cache``.
+line naming its item in ROADMAP.md, never ignored: the run registry
+(``--runs-root``, item 6), serve's event stream (``serve --telemetry-dir``,
+item 3), meshes (``--mesh_*``, ``--engine shard_map``, item 7), the other
+subcommands (item 6) and workloads (item 5), datasets the port's registry
+lacks (item 4), contrastive sweeps (item 8), and serve's
+``--exec_cache``.
 
 Artifacts (in ``--artifact_outdir``), written in this order:
   - ``history.npz`` (``history_replica{r}.npz`` for a sweep): beta,
@@ -33,7 +42,8 @@ Artifacts (in ``--artifact_outdir``), written in this order:
     (compression matrices, drawn during training, are then refused).
 
 The entry points run on the GPU; tests pass ``device="cpu"`` to
-:func:`run`, :func:`serve_main` or :func:`main`.
+:func:`run`, :func:`serve_main` or :func:`main` (under ``--watchdog``
+the supervisor hands that device to its workers' command).
 """
 
 from __future__ import annotations
@@ -48,7 +58,8 @@ from typing import Sequence
 
 _ITEM = "ROADMAP.md queue 1, item {}"
 JAX_CHECKPOINTS = _ITEM.format("1 (reading JAX/Orbax checkpoints)")
-DURABILITY = _ITEM.format("3 (watchdog, telemetry and fault plans)")
+SERVE_EVENTS = _ITEM.format("3 (the serving event stream)")
+RUNS_REGISTRY = _ITEM.format("6 (the run registry, which needs telemetry/summary.py)")
 DATASETS = _ITEM.format("4 (the tabular and pendulum datasets)")
 WORKLOADS = _ITEM.format("5 (the other workloads)")
 SUBCOMMANDS = _ITEM.format("6 (the CLI's other subcommands)")
@@ -59,19 +70,13 @@ SERVE_GRAPHS = ("ROADMAP.md, waiting for the port's benchmark: per-bucket CUDA g
 
 # train flags the port refuses when given a value other than the default
 REFUSED_FLAGS = {
-    "watchdog": DURABILITY,
-    "heartbeat": DURABILITY,
-    "watchdog_floor_s": DURABILITY,
-    "watchdog_first_timeout_s": DURABILITY,
-    "telemetry_dir": DURABILITY,
-    "runs_root": DURABILITY,
+    "runs_root": RUNS_REGISTRY,
     "mesh_beta": MULTI_GPU,
     "mesh_data": MULTI_GPU,
     "engine": MULTI_GPU,
 }
-# values of those flags that do what the port does: 'vmap' is its stacked
-# program, and '' turns off the event stream the port never writes
-ACCEPTED_VALUES = {"engine": ("vmap",), "telemetry_dir": ("",)}
+# values of those flags that do what the port does: 'vmap' is its stacked program
+ACCEPTED_VALUES = {"engine": ("vmap",)}
 REFUSED_SUBCOMMANDS = {
     "telemetry": SUBCOMMANDS,
     "lint": SUBCOMMANDS,
@@ -81,15 +86,19 @@ REFUSED_SUBCOMMANDS = {
     "study": SUBCOMMANDS,
 }
 PORTED_WORKLOADS = ("amorphous", "amorphous_protocols")
-NO_EVENT_STREAM = "the port writes no event stream"
 
 
-def _add_telemetry_dir_flag(parser: argparse.ArgumentParser) -> None:
+def _add_telemetry_dir_flag(parser: argparse.ArgumentParser, default_desc: str | None) -> None:
+    """``--telemetry-dir`` (its default directory ``default_desc``; None:
+    refused unless '', as serve's) and ``--runs-root`` (refused)."""
+    help_dir = (f"Not ported for serve: refused unless '' ({SERVE_EVENTS})."
+                if default_desc is None else
+                f"Directory of the run's event stream, events.jsonl (default: {default_desc}; "
+                "'' writes none).")
     parser.add_argument("--telemetry-dir", "--telemetry_dir", dest="telemetry_dir", type=str,
-                        default=None,
-                        help=f"Not ported ({NO_EVENT_STREAM}): refused unless ''; {DURABILITY}.")
+                        default=None, help=help_dir)
     parser.add_argument("--runs-root", "--runs_root", dest="runs_root", type=str, default="",
-                        help=f"Not ported ({NO_EVENT_STREAM}): refused when set; {DURABILITY}.")
+                        help=f"Not ported: refused when set ({RUNS_REGISTRY}).")
 
 
 def _add_model_flags(parser: argparse.ArgumentParser) -> None:
@@ -141,8 +150,7 @@ class _TrainParser(argparse.ArgumentParser):
 def build_parser() -> argparse.ArgumentParser:
     parser = _TrainParser(
         prog="dib_tpu_torch",
-        description="Train a Distributed IB model on the GPU (the PyTorch/CUDA port; "
-                    f"{NO_EVENT_STREAM}).",
+        description="Train a Distributed IB model on the GPU (the PyTorch/CUDA port).",
     )
     parser.add_argument("command", nargs="?", default="train",
                         choices=["train", "workload", "telemetry", "serve", "lint", "sched",
@@ -185,18 +193,22 @@ def build_parser() -> argparse.ArgumentParser:
                              "resume when the directory holds a checkpoint.")
     parser.add_argument("--checkpoint_frequency", type=int, default=500)
     parser.add_argument("--watchdog", action="store_true",
-                        help=f"Not ported: refused; {DURABILITY}.")
+                        help="Supervise the run: relaunch this command as a worker with "
+                             "checkpoints and a heartbeat, SIGKILL it when a chunk stalls past 3x "
+                             "the trailing-median chunk wall-clock (or --watchdog_floor_s), "
+                             "relaunch it when it dies, and let it resume from its checkpoint.")
     parser.add_argument("--heartbeat", type=str, default="",
-                        help=f"Not ported: refused when set; {DURABILITY}.")
+                        help="Write a chunk-boundary heartbeat JSON here (set by --watchdog).")
     parser.add_argument("--watchdog_floor_s", type=float, default=45.0,
-                        help=f"Not ported: refused when set; {DURABILITY}.")
+                        help="The watchdog's least stall timeout (seconds).")
     parser.add_argument("--watchdog_first_timeout_s", type=float, default=600.0,
-                        help=f"Not ported: refused when set; {DURABILITY}.")
+                        help="Seconds a worker has for its first chunk boundary (its start "
+                             "included).")
     parser.add_argument("--preempt_grace_s", type=float, default=30.0,
                         help="SIGTERM/SIGINT grace budget: finish the chunk in flight, write a "
                              "chunk-aligned checkpoint and exit with 75; past the budget the "
                              "process exits anyway. 0 disables the handler.")
-    _add_telemetry_dir_flag(parser)
+    _add_telemetry_dir_flag(parser, "the run dir (--artifact_outdir)")
     return parser
 
 
@@ -206,11 +218,8 @@ def refusal(args, defaults: dict) -> str | None:
     for dest, item in REFUSED_FLAGS.items():
         value = getattr(args, dest)
         if value != defaults[dest] and value not in ACCEPTED_VALUES.get(dest, ()):
-            flag = "--" + (dest.replace("_", "-") if dest in ("telemetry_dir", "runs_root")
-                           else dest)
+            flag = "--" + (dest.replace("_", "-") if dest == "runs_root" else dest)
             return f"{flag} {value!r} is not ported ({item})"
-    if os.environ.get("DIB_FAULT_PLAN"):
-        return f"DIB_FAULT_PLAN (fault plans) is not ported ({DURABILITY})"
     if args.command in REFUSED_SUBCOMMANDS:
         return (f"the {args.command!r} subcommand is not ported "
                 f"({REFUSED_SUBCOMMANDS[args.command]})")
@@ -337,12 +346,15 @@ def run(args, device=None) -> dict:
     import torch
 
     from dib_tpu_torch.device import resolve_device
+    from dib_tpu_torch.faults import FaultPlan
     from dib_tpu_torch.ops.entropy import sequence_entropy_bits
     from dib_tpu_torch.parallel import BetaSweepTrainer, PerReplicaHook, member_seed
+    from dib_tpu_torch.telemetry import open_writer, runtime_manifest, shared_run_id
     from dib_tpu_torch.train import CompressionMatrixHook, DIBTrainer, Every, InfoPerFeatureHook
-    from dib_tpu_torch.train.checkpoint import CheckpointHook, DIBCheckpointer
+    from dib_tpu_torch.train.checkpoint import CheckpointHook, DIBCheckpointer, fallback_reporter
     from dib_tpu_torch.train.history import history_extend
     from dib_tpu_torch.train.preempt import PreemptionGuard, TrainingPreempted
+    from dib_tpu_torch.train.watchdog import HeartbeatHook
 
     device = resolve_device(device)
     render = matplotlib_available()
@@ -368,7 +380,19 @@ def run(args, device=None) -> dict:
                                CompressionMatrixHook(subdir, seed=args.seed)))
         return hooks, info_hook
 
-    guard = PreemptionGuard(args.preempt_grace_s) if args.preempt_grace_s > 0 else None
+    # the event stream: into the run dir unless --telemetry-dir says otherwise
+    telemetry = open_writer(args.telemetry_dir, outdir, run_id=shared_run_id())
+    # DIB_FAULT_PLAN: chunk-boundary faults, fired-once marks in the run dir
+    fault_plan = FaultPlan.from_env(state_dir=outdir)
+
+    def grace_expired():
+        # the chunk outlived the grace budget: end the stream before the exit
+        if telemetry is not None:
+            telemetry.run_end(status="preempted", aborted_chunk=True)
+            telemetry.close()
+
+    guard = (PreemptionGuard(args.preempt_grace_s, on_grace_expired=grace_expired)
+             if args.preempt_grace_s > 0 else None)
     entropy_y = None
     y_arr = np.asarray(bundle.y_train)
     if bundle.loss_is_info_based and not args.infonce_loss and np.allclose(y_arr,
@@ -395,6 +419,7 @@ def run(args, device=None) -> dict:
         hooks = [PerReplicaHook(make_replica_hook)] if cadences else []
         generators = [torch.Generator(device=device).manual_seed(member_seed(args.seed, r))
                       for r in range(len(ends))]
+        manifest_extra = {"beta_ends": [float(b) for b in ends], "sweep_engine": "vmap"}
     else:
         model, y_encoder = _model_from_args(args, bundle, device=device)
         trainer = DIBTrainer(model, bundle, config, y_encoder=y_encoder, device=device)
@@ -402,6 +427,13 @@ def run(args, device=None) -> dict:
         if info_hook is not None:
             info_hooks["info_bounds.npz"] = info_hook
         generators = torch.Generator(device=device).manual_seed(args.seed)
+        manifest_extra = {}
+    if args.heartbeat:
+        # first: it waits for the chunk itself, so its intervals are chunk wall-clocks
+        hooks.insert(0, HeartbeatHook(args.heartbeat))
+    if telemetry is not None:
+        telemetry.run_start(runtime_manifest(config=config, extra={
+            "dataset": args.dataset, "seed": args.seed, **manifest_extra}))
 
     state = history = remaining = None
     if args.checkpoint_dir:
@@ -411,9 +443,9 @@ def run(args, device=None) -> dict:
             # the newest intact step: a step a kill left corrupt is
             # quarantined and the gap trained again
             state, history, generators = ckpt.restore_latest_intact(
-                trainer, chunk_size=hook_every, on_fallback=lambda info: print(
-                    f"warning: checkpoint step {info['step']} is corrupt and was moved to "
-                    f"{info['quarantined']}: {info['error']}", file=sys.stderr))
+                trainer, chunk_size=hook_every, on_fallback=fallback_reporter(
+                    telemetry, source="auto-resume",
+                    log=lambda msg: print(f"warning: {msg}", file=sys.stderr)))
             done = state.epoch
             remaining = max(config.num_epochs - done, 0)
             capacity, cursor = history["beta"].shape[-1], history["cursor"]
@@ -441,13 +473,18 @@ def run(args, device=None) -> dict:
                   f"{hook_every or config.num_epochs}", file=sys.stderr, flush=True)
             # (state, history) are a sweep's (states, histories): passed by position
             state, records = trainer.fit(generators, remaining, hooks, hook_every, state,
-                                         history, preempt=guard)
+                                         history, preempt=guard, telemetry=telemetry,
+                                         fault_plan=fault_plan)
     except TrainingPreempted as exc:
         summary.update(status="preempted", preempted_at_epoch=exc.epoch,
                        checkpoint_saved=exc.checkpoint_saved)
         print(f"preempted: {exc}; a relaunch resumes from the chunk-aligned checkpoint",
               file=sys.stderr)
         save_info_bounds()
+        if telemetry is not None:
+            telemetry.run_end(status="preempted", epoch=exc.epoch)
+            telemetry.close()
+            summary["events_path"] = telemetry.path
         _write_summary(outdir, summary)
         return summary
 
@@ -462,6 +499,9 @@ def run(args, device=None) -> dict:
         summary["beta_ends"] = [float(b) for b in ends]
         summary["final_val_loss"] = [float(r.to_bits(bundle.loss_is_info_based).val_loss[-1])
                                      for r in records]
+        if trainer.ejected_replicas:
+            summary["ejected_replicas"] = {str(r): info
+                                           for r, info in trainer.ejected_replicas.items()}
     else:
         bits = records.to_bits(bundle.loss_is_info_based)
         _save_history(os.path.join(outdir, "history.npz"), bits)
@@ -469,6 +509,11 @@ def run(args, device=None) -> dict:
         summary["final_loss"] = float(bits.loss[-1])
         summary["final_val_loss"] = float(bits.val_loss[-1])
         summary["final_total_kl_bits"] = float(bits.total_kl[-1])
+    if telemetry is not None:
+        telemetry.run_end(status="ok", final_val_loss=summary.get("final_val_loss"),
+                          resumed_from_epoch=summary.get("resumed_from_epoch"))
+        telemetry.close()
+        summary["events_path"] = telemetry.path
     _write_summary(outdir, summary)
     if render:
         from dib_tpu_torch.viz import save_distributed_info_plane
@@ -620,7 +665,7 @@ def _json_safe(x, depth: int = 0):
 def workload_main(argv: Sequence[str], device=None) -> int:
     parser = argparse.ArgumentParser(
         prog="dib_tpu_torch workload",
-        description=f"Run a paper workload end to end ({NO_EVENT_STREAM}).")
+        description="Run a paper workload end to end.")
     parser.add_argument("name", choices=["boolean", "amorphous", "amorphous_protocols", "chaos",
                                          "chaos_state_sweep", "characterization",
                                          "radial_shells"],
@@ -628,26 +673,36 @@ def workload_main(argv: Sequence[str], device=None) -> int:
                              f"refused ({WORKLOADS}).")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--outdir", default=None, help="Artifact directory.")
-    _add_telemetry_dir_flag(parser)
+    _add_telemetry_dir_flag(parser, "--outdir when given, else none")
     parser.add_argument("--set", action="append", default=[], metavar="FIELD=VALUE",
                         help="Override a workload config field or keyword (repeatable), "
                              "e.g. --set num_steps=1000")
     args = parser.parse_args(argv)
     if args.name not in PORTED_WORKLOADS:
         parser.error(f"workload {args.name!r} is not ported ({WORKLOADS})")
-    if args.telemetry_dir not in (None, "") or args.runs_root:
-        parser.error(f"--telemetry-dir/--runs-root: {NO_EVENT_STREAM} ({DURABILITY})")
+    if args.runs_root:
+        parser.error(f"--runs-root {args.runs_root!r} is not ported ({RUNS_REGISTRY})")
     overrides = _parse_sets(args.set)
 
     from dib_tpu_torch import workloads as wl
+    from dib_tpu_torch.telemetry import open_writer, runtime_manifest, shared_run_id
+
+    # the event stream brackets the run (run_start, run_end), into --outdir by default
+    telemetry = open_writer(args.telemetry_dir, args.outdir, run_id=shared_run_id())
 
     kwargs = {"outdir": args.outdir} if args.outdir else {}
     render = matplotlib_available()
     if not render:
         print("matplotlib does not import here: the workload draws nothing (render=False)",
               file=sys.stderr)
+    def start(config=None):
+        if telemetry is not None:
+            telemetry.run_start(runtime_manifest(config=config, extra={
+                "workload": args.name, "seed": args.seed}))
+
     if args.name == "amorphous":
         config = _apply_config(wl.AmorphousWorkloadConfig, overrides)
+        start(config)
         result = wl.run_amorphous_workload(args.seed, config, device=device, render=render,
                                            **kwargs)
     else:
@@ -658,8 +713,12 @@ def workload_main(argv: Sequence[str], device=None) -> int:
         # the other --set names go to run_amorphous_protocols and the dataset
         rest = {k: v for k, v in overrides.items() if k not in fields}
         config = _apply_config(wl.AmorphousWorkloadConfig, cfg) if cfg else None
+        start(config)
         result = wl.run_amorphous_protocols(args.seed, config=config, device=device,
                                             render=render, **rest, **kwargs)
+    if telemetry is not None:
+        telemetry.run_end(status="ok")
+        telemetry.close()
     print(json.dumps(_json_safe(result)))
     return 0
 
@@ -683,7 +742,7 @@ def serve_parser() -> argparse.ArgumentParser:
     parser = _ServeParser(
         prog="dib_tpu_torch serve",
         description="Serve a checkpoint of `dib_tpu_torch train` over a JSON HTTP API on the "
-                    f"GPU ({NO_EVENT_STREAM}).",
+                    "GPU.",
     )
     _add_model_flags(parser)
     parser.add_argument("--checkpoint_dir", type=str, required=True,
@@ -751,9 +810,9 @@ def serve_parser() -> argparse.ArgumentParser:
                         help="Auto-shutdown after this many seconds (0 = run until "
                              "SIGINT/SIGTERM).")
     parser.add_argument("--outdir", type=str, default="./serve_artifacts/",
-                        help=f"Run directory (created and named in the hello line; "
-                             f"{NO_EVENT_STREAM}).")
-    _add_telemetry_dir_flag(parser)
+                        help="Run directory (created and named in the hello line; serving "
+                             f"writes no event stream yet, {SERVE_EVENTS}).")
+    _add_telemetry_dir_flag(parser, None)
     return parser
 
 
@@ -762,10 +821,9 @@ def serve_refusal(args) -> str | None:
     if args.exec_cache > 0:
         return f"--exec_cache {args.exec_cache} is not ported ({SERVE_GRAPHS})"
     if args.telemetry_dir not in (None, ""):
-        return (f"--telemetry-dir {args.telemetry_dir!r} is not ported ({NO_EVENT_STREAM}; "
-                f"{DURABILITY})")
+        return f"--telemetry-dir {args.telemetry_dir!r} is not ported ({SERVE_EVENTS})"
     if args.runs_root:
-        return f"--runs-root {args.runs_root!r} is not ported ({NO_EVENT_STREAM}; {DURABILITY})"
+        return f"--runs-root {args.runs_root!r} is not ported ({RUNS_REGISTRY})"
     return _model_refusal(args)
 
 
@@ -778,15 +836,15 @@ def _serve_config(args):
                        warmup_steps=args.warmup_steps)
 
 
-def _prefork_command(device) -> tuple[str, ...] | None:
-    """The prefork workers' command when ``serve_main`` was given a device:
-    the serve entry point with that device (``None`` keeps
-    ``python -m dib_tpu_torch serve``, which runs on the GPU)."""
+def _entry_command(device) -> list[str]:
+    """The command of a worker process (prefork servers, the watchdog's
+    training workers), before its subcommand: ``python -m dib_tpu_torch``
+    (the GPU), or, when the entry point was given a device, ``main`` with
+    that device as its Python argument."""
     if device is None:
-        return None
-    return (sys.executable, "-c",
-            "import sys; from dib_tpu_torch.cli import main; "
-            f"sys.exit(main(['serve', *sys.argv[1:]], device={str(device)!r}))")
+        return [sys.executable, "-m", "dib_tpu_torch"]
+    return [sys.executable, "-c", "import sys; from dib_tpu_torch.cli import main; "
+            f"sys.exit(main(sys.argv[1:], device={str(device)!r}))"]
 
 
 def serve_main(argv: Sequence[str], device=None) -> int:
@@ -801,11 +859,11 @@ def serve_main(argv: Sequence[str], device=None) -> int:
         return serve_top_main(argv[1:])
     args = serve_parser().parse_args(argv)
     if args.prefork > 0:
-        from dib_tpu_torch.serve.prefork import WORKER_COMMAND, supervise_prefork
+        from dib_tpu_torch.serve.prefork import supervise_prefork
 
         return supervise_prefork(argv, prefork=args.prefork, host=args.host, port=args.port,
                                  outdir=args.outdir, serve_seconds=args.serve_seconds,
-                                 command=_prefork_command(device) or WORKER_COMMAND)
+                                 command=(*_entry_command(device), "serve"))
 
     import signal
     import threading
@@ -904,13 +962,59 @@ def main(argv: Sequence[str] | None = None, device=None) -> int:
         print(f"dib_tpu_torch: the {argv[0]!r} subcommand is not ported "
               f"({REFUSED_SUBCOMMANDS[argv[0]]})", file=sys.stderr)
         return 2
-    summary = run(build_parser().parse_args(argv), device=device)
+    args = build_parser().parse_args(argv)
+    if args.watchdog:
+        return _watchdog_main(args, argv, device)
+    try:
+        summary = run(args, device=device)
+    except BaseException as exc:
+        # a crashed run's stream ends with run_end(status="error")
+        from dib_tpu_torch.telemetry import finalize_crashed
+
+        finalize_crashed(exc, log=lambda msg: print(msg, file=sys.stderr))
+        raise
     print(json.dumps(summary))
     if summary.get("status") == "preempted":
         from dib_tpu_torch.train.preempt import PREEMPT_EXIT_CODE
 
         return PREEMPT_EXIT_CODE
     return 0
+
+
+def _watchdog_main(args, argv: Sequence[str], device=None) -> int:
+    """``train --watchdog``: this process becomes a supervisor that never
+    touches the device; it relaunches the same command without the flag
+    as a worker with a checkpoint directory and a heartbeat
+    (``train/watchdog.py``). The run id and the trace context are pinned
+    in the environment, so the supervisor's mitigations and every worker
+    launch write one run into one event stream; liveness comes from that
+    stream's heartbeats when it is written. Prints ``{"watchdog": report}``
+    and exits 0 once a worker finished."""
+    from dib_tpu_torch.telemetry import open_writer, shared_run_id
+    from dib_tpu_torch.telemetry.context import ensure_context
+    from dib_tpu_torch.train.watchdog import WatchdogConfig, supervise_self
+
+    run_id = shared_run_id()
+    os.environ["DIB_TELEMETRY_RUN_ID"] = run_id
+    ctx = ensure_context("train")
+    ctx.activate()
+    telemetry = open_writer(args.telemetry_dir, args.artifact_outdir, run_id=run_id,
+                            process_index=0, tags={"src": "supervisor"}, ctx=ctx)
+    try:
+        result = supervise_self(
+            _entry_command(device), argv, outdir=args.artifact_outdir,
+            watchdog_flag="--watchdog", heartbeat_flag="--heartbeat",
+            checkpoint_flag="--checkpoint_dir", heartbeat=args.heartbeat,
+            checkpoint_dir=args.checkpoint_dir,
+            config=WatchdogConfig(first_beat_timeout_s=args.watchdog_first_timeout_s,
+                                  floor_s=args.watchdog_floor_s),
+            telemetry=telemetry,
+            events_path=telemetry.path if telemetry is not None else None)
+    finally:
+        if telemetry is not None:
+            telemetry.close()
+    print(json.dumps({"watchdog": result}))
+    return 0 if result["returncode"] == 0 else 1
 
 
 if __name__ == "__main__":

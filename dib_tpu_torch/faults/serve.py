@@ -7,7 +7,8 @@ stand-in for a sick device behind one serving replica. The router's health
 tracking (``serve/replicas.py``) must eject it after consecutive failures,
 keep client calls flowing through the healthy replicas, and re-admit it
 via probe once it heals. The JAX package also writes a ``fault`` event per
-injection; the port has no event stream yet (ROADMAP.md queue 1, item 3).
+injection; the port's serving stack writes no event stream yet (ROADMAP.md
+queue 1, item 3).
 
 ``kill_batcher_worker`` crashes a micro-batcher's dispatch thread the way
 a real bug would (an exception escaping the drain loop) — the fault the

@@ -107,13 +107,18 @@ class DistributedIBModel(nn.Module):
         for a [B, dim] input)."""
         return self.encoders.encode_single(feature_index, x_feature)
 
+    def member_axis(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """A view of a stacked tensor laid out like parameter ``name`` (the
+        parameter, or its Adam moments) that leads with R: the encoder
+        bank's leaves lead with R x F, the others with R."""
+        return value.unflatten(0, (self.replicas, -1)) if name.startswith("encoders.") else value
+
     def member_values(self, name: str, value: torch.Tensor, members) -> torch.Tensor:
         """Members ``members`` (an int or a list) of a stacked tensor laid
-        out like parameter ``name`` (the parameter, or its Adam moments):
-        the encoder bank's leaves lead with R x F, the others with R."""
-        if name.startswith("encoders."):
-            value = value.unflatten(0, (self.replicas, -1))
-            return value[members] if isinstance(members, int) else value[members].flatten(0, 1)
+        out like parameter ``name``, in the parameter's own layout."""
+        value = self.member_axis(name, value)
+        if name.startswith("encoders.") and not isinstance(members, int):
+            return value[members].flatten(0, 1)
         return value[members]
 
     def carve(self, members: int | Sequence[int]) -> "DistributedIBModel":

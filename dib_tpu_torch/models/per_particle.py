@@ -137,6 +137,12 @@ class PerParticleDIBModel(nn.Module):
         model.load_state_dict({name: value[index] for name, value in self.state_dict().items()})
         return model
 
+    def member_axis(self, name: str, value: torch.Tensor) -> torch.Tensor:
+        """A stacked tensor laid out like parameter ``name``, leading with R
+        (every leaf does)."""
+        del name
+        return value
+
     def member_values(self, name: str, value: torch.Tensor, members) -> torch.Tensor:
         """Members ``members`` of a stacked tensor laid out like parameter
         ``name`` (every leaf leads with R)."""

@@ -9,8 +9,10 @@ keep the JAX hook's shapes and units ([R, F, 2] nats), so per-replica
 plotting is unchanged. ``SweepCompressionHook`` pulls every replica's
 compression scheme with one stacked encode per (call, feature) and saves it
 as ``.npz``; ``render()`` draws the PNGs the serial
-``CompressionMatrixHook`` would have drawn, after the timed run. Not ported
-yet: ``overlap=`` and ``telemetry=``.
+``CompressionMatrixHook`` would have drawn, after the timed run. The MI
+hook's ``overlap=True`` measures on a side CUDA stream while the next chunk
+trains (``train/overlap.py``), and ``telemetry=`` writes one ``mi_bounds``
+event per record.
 """
 
 from __future__ import annotations
@@ -82,16 +84,30 @@ class SweepInfoPerFeatureHook:
     ``epoch{E}.npz``. Its records are read back only when the caller says
     the run resumes (``resume=True``); a call then drops the read records
     at or past its epoch, which the resumed run measures again.
+
+    ``overlap=True`` measures a snapshot of the stacked model on a side
+    CUDA stream and files the result at the next call, or at the first
+    read of ``records`` (``train/overlap.py``), with the numbers of
+    ``overlap=False``. ``telemetry`` (an ``EventWriter``) gets one
+    ``mi_bounds`` event per record: each replica's mean bounds in bits,
+    with its beta endpoint. ``rewind(epoch)`` drops the records past
+    ``epoch`` (``fit`` calls it after a rollback).
     """
 
     def __init__(self, evaluation_batch_size: int = 1024, number_evaluation_batches: int = 8,
-                 seed: int = 0, persist: str | None = None, resume: bool = False, draws=None):
+                 seed: int = 0, persist: str | None = None, resume: bool = False, draws=None,
+                 overlap: bool = False, telemetry=None):
         self.evaluation_batch_size = evaluation_batch_size
         self.number_evaluation_batches = number_evaluation_batches
         self.seed = seed
         self.draws = draws
         self.persist = persist
-        self.records: list[dict] = []
+        self.overlap = overlap
+        self.telemetry = telemetry
+        self._records: list[dict] = []
+        self._pending = None
+        self._runner = None
+        self._beta_ends = None
         self._rows = None
         self._rows_for = None     # the bundle the uploaded rows came from
         if persist:
@@ -104,8 +120,47 @@ class SweepInfoPerFeatureHook:
                     found.append((int(match.group(1)), name))
             for _, name in sorted(found):
                 with np.load(os.path.join(persist, name)) as data:
-                    self.records.append({"epoch": int(data["epoch"]),
-                                         "bounds": np.asarray(data["bounds"])})
+                    self._records.append({"epoch": int(data["epoch"]),
+                                          "bounds": np.asarray(data["bounds"])})
+
+    @property
+    def records(self) -> list[dict]:
+        """The measurements (an overlapped one in flight is collected first)."""
+        self._flush_pending()
+        return self._records
+
+    @records.setter
+    def records(self, value) -> None:
+        self._pending = None
+        self._records = value
+
+    def _flush_pending(self) -> None:
+        if self._pending is None:
+            return
+        from dib_tpu_torch.train.overlap import collect_overlapped
+
+        pending, self._pending = self._pending, None
+        lower, upper = collect_overlapped(pending)
+        self._file_record(pending.meta["epoch"], torch.stack([lower, upper], dim=-1).numpy())
+
+    def _file_record(self, epoch: int, bounds: np.ndarray) -> None:
+        """Append one [R, F, 2]-nats record, its event and its mirror."""
+        self._records.append({"epoch": epoch, "bounds": bounds})
+        if self.telemetry is not None:
+            ln2 = np.log(2.0)
+            self.telemetry.mi_bounds(epoch=epoch,
+                                     lower_bits=(bounds[..., 0].mean(-1) / ln2).tolist(),
+                                     upper_bits=(bounds[..., 1].mean(-1) / ln2).tolist(),
+                                     beta_end=self._beta_ends)
+        if self.persist:
+            path = os.path.join(self.persist, f"epoch{epoch}.npz")
+            np.savez(f"{path}.tmp.npz", epoch=epoch, bounds=bounds)
+            os.replace(f"{path}.tmp.npz", path)
+
+    def rewind(self, epoch: int) -> None:
+        """Forget the records past ``epoch``; the next call's index, and
+        with it its draws, follow."""
+        self.records = [r for r in self.records if r["epoch"] <= epoch]
 
     def check(self, sweep):
         """Called by ``fit`` before its first epoch: refuses channels the
@@ -119,22 +174,30 @@ class SweepInfoPerFeatureHook:
             self._rows = torch.as_tensor(sweep.bundle.x_valid, dtype=torch.float32,
                                          device=device)
             self._rows_for = sweep.bundle
+        self._beta_ends = [float(b) for b in sweep.beta_ends_host]
         self.records = [r for r in self.records if r["epoch"] < epoch]
-        call = len(self.records)
+        call = len(self._records)
         idx = u = generator = None
         if self.draws is not None:
             idx, u = self.draws(model, self._rows, call)
         else:
             generator = torch.Generator(device=device).manual_seed(call_seed(self.seed, call))
-        lower, upper = sweep_features_bounds(
-            model, self._rows, self.evaluation_batch_size, self.number_evaluation_batches,
-            generator=generator, idx=idx, u=u)
-        bounds = torch.stack([lower, upper], dim=-1).cpu().numpy()     # [R, F, 2] nats
-        self.records.append({"epoch": epoch, "bounds": bounds})
-        if self.persist:
-            path = os.path.join(self.persist, f"epoch{epoch}.npz")
-            np.savez(f"{path}.tmp.npz", epoch=epoch, bounds=bounds)
-            os.replace(f"{path}.tmp.npz", path)
+        if not self.overlap:
+            lower, upper = sweep_features_bounds(
+                model, self._rows, self.evaluation_batch_size, self.number_evaluation_batches,
+                generator=generator, idx=idx, u=u)
+            self._file_record(epoch, torch.stack([lower, upper], dim=-1).cpu().numpy())
+            return
+        from dib_tpu_torch.train.overlap import OverlapRunner
+
+        if self._runner is None:
+            self._runner = OverlapRunner()
+        shadow = self._runner.snapshot(model)
+        self._pending = self._runner.launch(
+            lambda: sweep_features_bounds(shadow, self._rows, self.evaluation_batch_size,
+                                          self.number_evaluation_batches, generator=generator,
+                                          idx=idx, u=u),
+            device, epoch=epoch, reads=[self._rows])
 
     @property
     def epochs(self) -> np.ndarray:

@@ -1,11 +1,27 @@
 """Host-side telemetry of the port (counterpart of ``dib_tpu/telemetry``).
 
-Only the metrics registry is ported (:mod:`dib_tpu_torch.telemetry.metrics`)
-and the closed vocabulary of request phases the HTTP server stamps. The
-event stream, the tracer and the run registry wait for ROADMAP.md queue 1,
-item 3.
+The metrics registry (:mod:`~dib_tpu_torch.telemetry.metrics`), the run's
+event stream (:mod:`~dib_tpu_torch.telemetry.events`, with the JAX
+package's schema), the trace context (:mod:`~dib_tpu_torch.telemetry.
+context`), spans that also mark NVTX ranges (:mod:`~dib_tpu_torch.
+telemetry.trace`), the fit's recorder and heartbeats (:mod:`~dib_tpu_torch.
+telemetry.hooks`) and the stream follower the watchdog reads
+(:mod:`~dib_tpu_torch.telemetry.live`). The run registry, summaries,
+reports and the live dashboard wait for ROADMAP.md queue 1, item 6.
 """
 
+from dib_tpu_torch.telemetry.events import (
+    EVENT_SCHEMA,
+    REQUEST_PHASES,
+    EventWriter,
+    finalize_crashed,
+    finalize_open_writers,
+    open_writer,
+    read_events,
+    runtime_manifest,
+    shared_run_id,
+    validate_event,
+)
 from dib_tpu_torch.telemetry.metrics import (
     BUCKET_BOUNDS,
     Counter,
@@ -17,20 +33,14 @@ from dib_tpu_torch.telemetry.metrics import (
     bucket_quantile,
     gather_snapshots,
     prometheus_text,
+    write_metrics,
 )
-
-#: Closed vocabulary for a request's phases, in wire order (a copy of
-#: ``dib_tpu/telemetry/events.py::REQUEST_PHASES``). Every phase the HTTP
-#: server stamps comes from this tuple, and the per-phase histograms are
-#: named ``serve.phase.<name>``. A request carries only the phases it
-#: traversed (cached hits skip queue and batch; quota and shed rejections
-#: skip queue, batch and dispatch).
-REQUEST_PHASES = ("read", "parse", "admission", "queue", "batch",
-                  "dispatch", "serialize", "write")
 
 __all__ = [
     "BUCKET_BOUNDS",
     "Counter",
+    "EVENT_SCHEMA",
+    "EventWriter",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
@@ -38,6 +48,14 @@ __all__ = [
     "bucket_counts",
     "bucket_index",
     "bucket_quantile",
+    "finalize_crashed",
+    "finalize_open_writers",
     "gather_snapshots",
+    "open_writer",
     "prometheus_text",
+    "read_events",
+    "runtime_manifest",
+    "shared_run_id",
+    "validate_event",
+    "write_metrics",
 ]

@@ -10,9 +10,9 @@ let N prefork workers' snapshots merge by addition (``serve top``).
 
 Multi-process contract: every process keeps its own registry with the SAME
 metric names; :func:`gather_snapshots` collects one flat snapshot per
-process (over ``torch.distributed`` when a process group is up). The JAX
-package's ``write_metrics`` writes into the event stream, which the port
-does not have yet (ROADMAP.md queue 1, item 3), so it is left out.
+process (over ``torch.distributed`` when a process group is up), and
+:func:`write_metrics` writes them as one ``metrics`` event on a run's
+event stream (``telemetry/events.py``).
 """
 
 from __future__ import annotations
@@ -316,3 +316,21 @@ def gather_snapshots(registry: MetricsRegistry) -> list[dict]:
     gathered: list = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, local)
     return [{"proc": p, **snap} for p, snap in enumerate(gathered)]
+
+
+def write_metrics(registry: MetricsRegistry, writer) -> bool:
+    """Snapshot ``registry`` into a ``metrics`` event on ``writer``.
+
+    Returns True iff this process wrote (rank 0, or no process group);
+    other ranks contribute through the gather and return False.
+    """
+    snapshots = gather_snapshots(registry)
+    try:
+        import torch.distributed as dist
+    except ImportError:
+        dist = None
+    if dist is not None and dist.is_available() and dist.is_initialized() \
+            and dist.get_rank() != 0:
+        return False
+    writer.metrics(snapshots)
+    return True

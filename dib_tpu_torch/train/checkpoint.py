@@ -381,15 +381,48 @@ class CheckpointHook:
                                chunk_size=getattr(trainer, "resume_chunk", None))
 
 
-def find_checkpointer(hooks) -> DIBCheckpointer | None:
-    """The checkpointer in a fit's hook list, looking inside ``Every``
-    (``.hook``) and hook combinations (``.hooks``)."""
+def iter_hooks(hooks):
+    """Every hook of a fit's hook list, with those nested inside adapters:
+    ``Every`` and ``SpannedHook`` (``.hook``), hook combinations and
+    per-replica adapters (``.hooks``), in breadth-first order."""
     pending = list(hooks)
     while pending:
         hook = pending.pop(0)
-        if isinstance(getattr(hook, "checkpointer", None), DIBCheckpointer):
-            return hook.checkpointer
-        if getattr(hook, "hook", None) is not None:
-            pending.append(hook.hook)
+        yield hook
+        inner = getattr(hook, "__dict__", {}).get("hook")
+        if inner is not None:
+            pending.append(inner)
         pending.extend(getattr(hook, "hooks", ()) or ())
+
+
+def find_checkpointer(hooks) -> DIBCheckpointer | None:
+    """The checkpointer in a fit's hook list (or a proxy of one, such as
+    ``PoisonedReplicaRestore``), looking inside adapters."""
+    for hook in iter_hooks(hooks):
+        ckpt = getattr(hook, "__dict__", {}).get("checkpointer")
+        if ckpt is not None and hasattr(ckpt, "restore_latest_intact") \
+                and hasattr(ckpt, "latest_step"):
+            return ckpt
     return None
+
+
+def fallback_reporter(telemetry, *, source: str, log=None):
+    """The ``on_fallback`` of every ``restore_latest_intact`` caller (the
+    CLI's resume, the divergence rollback, the sweep's quarantine): a
+    corrupt step skipped on the way is a ``checkpoint_fallback``
+    mitigation, its quarantine a ``quarantine`` event, and one line through
+    ``log`` (default ``warnings.warn``). ``telemetry`` may be None."""
+    def report(info: dict) -> None:
+        import warnings
+
+        msg = (f"{source}: checkpoint step {info['step']} is corrupt and was skipped "
+               f"(quarantined={info.get('quarantined')}): {info['error']}")
+        (log if log is not None else warnings.warn)(msg)
+        if telemetry is None:
+            return
+        telemetry.mitigation(mtype="checkpoint_fallback", **info)
+        if info.get("quarantined"):
+            telemetry.quarantine(step=info["step"], reason="corrupt at restore",
+                                 path=info["quarantined"], source=source, error=info["error"])
+
+    return report

@@ -69,6 +69,9 @@ class HistoryRecord:
     val_loss: np.ndarray
     metric: np.ndarray
     val_metric: np.ndarray
+    # set by sweep_records for a member the sweep's quarantine ejected: its
+    # trajectory after the ejection epoch is garbage
+    ejected: bool = False
 
     @classmethod
     def from_device(cls, history: dict) -> "HistoryRecord":
@@ -86,6 +89,7 @@ class HistoryRecord:
             val_loss=self.val_loss / scale,
             metric=self.metric,
             val_metric=self.val_metric,
+            ejected=self.ejected,
         )
 
     @property

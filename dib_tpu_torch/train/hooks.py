@@ -2,8 +2,10 @@
 
 ``all_features_bounds`` is the paper's per-feature information query on a
 fixed set of weights; ``InfoPerFeatureHook`` runs it between training
-chunks and keeps the trajectory, ``CompressionMatrixHook`` renders each
-channel's compression scheme, and ``Every`` gives a hook its own cadence.
+chunks and keeps the trajectory (or, with ``overlap=True``, on a side CUDA
+stream while the next chunk trains), ``CompressionMatrixHook`` renders
+each channel's compression scheme, and ``Every`` gives a hook its own
+cadence.
 """
 
 from __future__ import annotations
@@ -86,22 +88,77 @@ class InfoPerFeatureHook:
     the validation rows, every channel of an eval batch in one kernel launch
     (:func:`all_features_bounds`).
 
-    Draws come from a generator seeded with ``seed`` on the model's device;
-    ``draws`` (a callable ``(model, rows) -> (idx, u)``, called once per
-    invocation) replaces them, so a test can replay another
-    implementation's draws.
+    Draws come from a generator seeded with ``seed`` on the model's device,
+    running across calls as the JAX hook's key does; ``draws`` (a callable
+    ``(model, rows) -> (idx, u)``, called once per invocation) replaces
+    them, so a test can replay another implementation's draws.
+
+    ``overlap=True`` measures a snapshot of the model on a side CUDA stream
+    and files the result at the next call, or at the first read of
+    ``records`` (``train/overlap.py``): the measurement runs while the next
+    chunk trains, and its numbers are those of ``overlap=False``.
+    ``telemetry`` (an ``EventWriter``) gets one ``mi_bounds`` event per
+    record. ``rewind(epoch)`` (called by ``fit`` after a rollback) drops the
+    records past ``epoch`` and returns the generator to where it stood, so
+    the replay draws what the uninterrupted run drew.
     """
 
     def __init__(self, evaluation_batch_size: int = 1024, number_evaluation_batches: int = 8,
-                 seed: int = 0, draws=None):
+                 seed: int = 0, draws=None, overlap: bool = False, telemetry=None):
         self.evaluation_batch_size = evaluation_batch_size
         self.number_evaluation_batches = number_evaluation_batches
         self.seed = seed
         self.draws = draws
-        self.records: list[dict] = []
+        self.overlap = overlap
+        self.telemetry = telemetry
+        self._records: list[dict] = []
+        self._generator_states: list = []    # the generator's state before each record's call
+        self._pending = None
+        self._runner = None
         self._generator = None
         self._rows = None
         self._rows_for = None     # the bundle the uploaded rows came from
+
+    @property
+    def records(self) -> list[dict]:
+        """The measurements (an overlapped one in flight is collected first)."""
+        self._flush_pending()
+        return self._records
+
+    @records.setter
+    def records(self, value) -> None:
+        self._pending = None
+        self._records = value
+        self._generator_states = [None] * len(value)
+
+    def _flush_pending(self) -> None:
+        if self._pending is None:
+            return
+        from dib_tpu_torch.train.overlap import collect_overlapped
+
+        pending, self._pending = self._pending, None
+        lower, upper = collect_overlapped(pending)
+        self._file_record(pending.meta["epoch"], lower, upper)
+
+    def _file_record(self, epoch: int, lower, upper) -> None:
+        bounds = [(float(a), float(b)) for a, b in zip(lower.tolist(), upper.tolist())]
+        self._records.append({"epoch": epoch, "bounds": bounds})
+        if self.telemetry is not None:
+            bits = np.asarray(bounds) / np.log(2.0)
+            self.telemetry.mi_bounds(epoch=epoch, lower_bits=bits[:, 0].tolist(),
+                                     upper_bits=bits[:, 1].tolist())
+
+    def rewind(self, epoch: int) -> None:
+        """Forget the records past ``epoch`` and return the generator to
+        its state before the first of them."""
+        records = self.records
+        keep = sum(1 for r in records if r["epoch"] <= epoch)
+        if keep < len(records):
+            state = self._generator_states[keep]
+            if state is not None and self._generator is not None:
+                self._generator.set_state(state)
+            del records[keep:]
+            del self._generator_states[keep:]
 
     def check(self, trainer):
         """Called by ``fit`` before its first epoch: refuses channels the
@@ -115,16 +172,30 @@ class InfoPerFeatureHook:
             self._rows = torch.as_tensor(trainer.bundle.x_valid, dtype=torch.float32,
                                          device=device)
             self._rows_for = trainer.bundle
+        self._flush_pending()
         idx = u = None
         if self.draws is not None:
             idx, u = self.draws(model, self._rows)
         elif self._generator is None or self._generator.device != device:
             self._generator = torch.Generator(device=device).manual_seed(self.seed)
-        lower, upper = all_features_bounds(
-            model, self._rows, self.evaluation_batch_size, self.number_evaluation_batches,
-            generator=self._generator, idx=idx, u=u)
-        bounds = [(float(a), float(b)) for a, b in zip(lower.tolist(), upper.tolist())]
-        self.records.append({"epoch": epoch, "bounds": bounds})
+        self._generator_states.append(None if self._generator is None or self.draws is not None
+                                      else self._generator.get_state())
+        if not self.overlap:
+            lower, upper = all_features_bounds(
+                model, self._rows, self.evaluation_batch_size, self.number_evaluation_batches,
+                generator=self._generator, idx=idx, u=u)
+            self._file_record(epoch, lower, upper)
+            return
+        from dib_tpu_torch.train.overlap import OverlapRunner
+
+        if self._runner is None:
+            self._runner = OverlapRunner()
+        shadow = self._runner.snapshot(model)
+        self._pending = self._runner.launch(
+            lambda: all_features_bounds(shadow, self._rows, self.evaluation_batch_size,
+                                        self.number_evaluation_batches,
+                                        generator=self._generator, idx=idx, u=u),
+            device, epoch=epoch, reads=[self._rows])
 
     @property
     def bounds_bits(self) -> np.ndarray:

@@ -20,14 +20,20 @@ reduced per replica, and one backward pass takes the sum over replicas.
 ``fit`` publishes what ``CheckpointHook`` saves (the generators that
 draw, the live history and the chunk size) and takes a
 ``PreemptionGuard``; a resumed run passes the restored generator states.
-Left out of ``fit`` for now: telemetry, fault plans, the divergence guard
-and its checkpoint rollback.
+It also writes the run's event stream (``telemetry=``), fires fault plans
+(``fault_plan=``) and guards against divergence: after every chunk the
+boundary row is fetched once and checked for non-finite values and
+anomalies (``train/anomaly.py``); a bad boundary rolls the fit back to the
+newest intact checkpoint of its checkpoint hook and replays from there,
+bit for bit for a transient fault.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Sequence
+
+import warnings
 
 import numpy as np
 import torch
@@ -131,6 +137,11 @@ class GeneratorDraws:
 
     def val_noise(self, chunk: int, num_chunks: int, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, device=self.generator.device)
+
+    def restore(self, generator_state, epoch: int) -> None:
+        """Continue from a checkpoint's generator state (a rollback): the
+        draws of epoch ``epoch`` on are the uninterrupted run's."""
+        self.generator.set_state(torch.as_tensor(generator_state, dtype=torch.uint8).cpu())
 
 
 class DIBTrainer:
@@ -300,19 +311,183 @@ class DIBTrainer:
         restored.set_state(torch.as_tensor(generator, dtype=torch.uint8).cpu())
         return restored
 
-    def _after_chunk(self, state: TrainState, history: dict):
-        """Runs after every chunk, before the hooks; a sweep checks its
-        members here."""
-
     def _records(self, history: dict):
         """What ``fit`` returns of the history."""
         return HistoryRecord.from_device(history)
+
+    def _param_norms(self, params) -> torch.Tensor:
+        """The parameters' global L2 norm (the anomaly detector's stand-in
+        for a gradient norm); a sweep's is one norm per member, [R]."""
+        if self.replicas is None:
+            return torch.linalg.vector_norm(torch.stack([p.detach().norm()
+                                                         for p in params.parameters()]))
+        model = params["model"]
+        squares = [model.member_axis(name, p.detach()).reshape(self.replicas, -1).pow(2).sum(1)
+                   for name, p in model.named_parameters()]
+        return torch.stack(squares).sum(0).sqrt()
+
+    def boundary_row(self, state: TrainState, history: dict) -> dict:
+        """The last recorded row (beta, loss, val_loss, kl_per_feature) and
+        the parameter norm, fetched to the host in one copy: float64 numpy
+        arrays, with a leading replica axis for a sweep."""
+        at = (slice(None),) * (history["beta"].dim() - 1) + (history["cursor"] - 1,)
+        parts = {name: history[name][at] for name in ("beta", "loss", "val_loss",
+                                                      "kl_per_feature")}
+        parts["param_norm"] = self._param_norms(state.params)
+        lead = () if self.replicas is None else (self.replicas,)
+        flat = torch.cat([v.detach().reshape(*lead, -1) for v in parts.values()],
+                         dim=-1).cpu().numpy().astype(np.float64)
+        row, start = {}, 0
+        for name, value in parts.items():
+            width = int(np.prod(value.shape[len(lead):], dtype=np.int64))
+            row[name] = flat[..., start:start + width].reshape(value.shape)
+            start += width
+        return row
+
+    def _chunk_fields(self, row: dict) -> dict:
+        """The boundary row as a ``chunk`` event's fields."""
+        return {"beta": float(row["beta"]), "loss": float(row["loss"]),
+                "val_loss": float(row["val_loss"]),
+                "kl_per_feature": [float(x) for x in row["kl_per_feature"]]}
+
+    def _chunk_tags(self) -> dict:
+        """Tags of each chunk span (a sweep's name its replicas and betas)."""
+        return {}
+
+    def _new_guard(self) -> dict:
+        """The divergence guard's memory for one fit."""
+        from dib_tpu_torch.train.anomaly import BoundaryAnomalyDetector
+
+        return {"detector": BoundaryAnomalyDetector.for_config(self.config), "warned": False,
+                "rollback": {"epoch": None, "step": None, "quarantines": 0}}
+
+    def _finish_fit(self, guard) -> None:
+        """Runs once a fit's loop ends; a sweep records its ejected members."""
+
+    def _check_boundary(self, guard, state, history, row, draws, hooks, telemetry, chunk,
+                        start_epoch):
+        """Judge the boundary row; on a finding, roll back to the newest
+        intact checkpoint (or warn once when there is none). Returns
+        ``(state, history, replayed)``: ``replayed`` sends the fit back to
+        the restored epoch, past this boundary's hooks and faults."""
+        from dib_tpu_torch.train.anomaly import boundary_channels
+        from dib_tpu_torch.train.checkpoint import find_checkpointer
+
+        epoch = int(state.epoch)
+        findings = guard["detector"].observe(epoch, boundary_channels(
+            row, param_norm=row["param_norm"]))
+        if not findings:
+            return state, history, False
+        mtype = ("anomaly_rollback" if all(f.kind == "spike" for f in findings)
+                 else "divergence_rollback")
+        if telemetry is not None:
+            for f in findings:
+                telemetry.anomaly(epoch=epoch, channel=f.channel, kind=f.kind, value=f.value,
+                                  zscore=f.zscore, threshold=f.threshold, phase=f.phase)
+        ckpt = find_checkpointer(hooks)
+        if ckpt is not None and ckpt.latest_step is not None:
+            state, history = self._rollback_divergence(
+                ckpt, telemetry, chunk, row, epoch=epoch, start_epoch=start_epoch,
+                rollback_ctx=guard["rollback"], mtype=mtype, draws=draws, hooks=hooks)
+            guard["detector"].rewind(int(state.epoch))
+            return state, history, True
+        if not guard["warned"]:
+            guard["warned"] = True
+            self._warn_divergence_unrecoverable(telemetry, row, epoch=epoch, findings=findings)
+        return state, history, False
+
+    def _warn_divergence_unrecoverable(self, telemetry, row, *, epoch, findings=()):
+        """A bad boundary with nothing to roll back to: say so, once."""
+        spikes_only = bool(findings) and all(f.kind == "spike" for f in findings)
+        what = "anomalous (finite-SDC-shaped)" if spikes_only else "non-finite"
+        detail = _row_detail(row)
+        if telemetry is not None:
+            telemetry.mitigation(
+                mtype="anomaly_detected" if spikes_only else "divergence_detected",
+                epoch=epoch, action="none",
+                reason="no checkpoint hook / saved step to roll back to", **detail)
+        warnings.warn(f"{what} loss/KL at epoch {epoch} (loss={detail['loss']}); no checkpoint "
+                      "to roll back to: training continues on a diverged state. Add a "
+                      "CheckpointHook to fit(hooks=...) to roll back automatically.")
+
+    def _rollback_divergence(self, ckpt, telemetry, chunk, row, *, epoch, start_epoch,
+                             rollback_ctx, mtype, draws, hooks):
+        """Restore the newest intact checkpoint into this trainer and the
+        draws (``draws.restore``), and rewind the hooks that keep records
+        past it; returns ``(state, history)``.
+
+        A divergence that recurs at or before the last rollback's epoch
+        means the restored step reproduces it: that step is quarantined and
+        the rollback retried from an older one, up to
+        ``_MAX_ROLLBACK_QUARANTINES`` times; past that (or when the step
+        cannot be quarantined) the divergence is deterministic and this
+        raises."""
+        from dib_tpu_torch.train.checkpoint import fallback_reporter
+
+        detail = _row_detail(row)
+        last_epoch = rollback_ctx.get("epoch")
+        if last_epoch is not None and epoch <= last_epoch:
+            last_step = rollback_ctx.get("step")
+            quarantines = rollback_ctx.get("quarantines", 0)
+            if not (hasattr(ckpt, "quarantine_step") and last_step is not None
+                    and quarantines < _MAX_ROLLBACK_QUARANTINES):
+                raise RuntimeError(
+                    f"training diverged again at epoch {epoch} after rolling back (previous "
+                    f"divergence at epoch {last_epoch}"
+                    + (f"; {quarantines} suspect checkpoint(s) already quarantined"
+                       if quarantines else "")
+                    + "): the trajectory diverges deterministically; lower the learning rate "
+                    "or the beta ceiling, or resume from an earlier checkpoint.")
+            reason = (f"restoring step {last_step} reproduced the anomaly at epoch {epoch}: the "
+                      "checkpoint was written during an anomalous window and is not a safe "
+                      "rollback target")
+            try:
+                qpath = ckpt.quarantine_step(last_step, reason)
+            except OSError as exc:
+                raise RuntimeError(
+                    f"divergence recurred at epoch {epoch} and the suspect checkpoint step "
+                    f"{last_step} could not be quarantined ({exc})") from exc
+            rollback_ctx["quarantines"] = quarantines + 1
+            if telemetry is not None:
+                telemetry.quarantine(step=last_step, reason=reason, path=qpath, epoch=epoch,
+                                     source="divergence rollback")
+            warnings.warn(f"divergence recurred at epoch {epoch}: checkpoint step {last_step} "
+                          f"reproduced it and was quarantined ({qpath}); retrying the rollback "
+                          "from an older step")
+        try:
+            state, history, generators = ckpt.restore_latest_intact(
+                self, chunk_size=chunk,
+                on_fallback=fallback_reporter(telemetry, source="divergence rollback"))
+        except Exception as exc:
+            raise RuntimeError(
+                f"divergence rollback failed: non-finite loss at epoch {epoch} and the "
+                f"checkpoint at step {ckpt.latest_step} could not be restored "
+                f"({type(exc).__name__}: {exc})") from exc
+        restored_epoch = int(state.epoch)
+        if restored_epoch < start_epoch:
+            raise RuntimeError(
+                f"divergence rollback refused: the latest checkpoint is at epoch "
+                f"{restored_epoch}, before this fit's start epoch {start_epoch}: the checkpoint "
+                "directory predates this fit. Restart the run from that checkpoint explicitly.")
+        draws.restore(generators, restored_epoch)
+        rewind_hooks(hooks, restored_epoch)
+        if telemetry is not None:
+            telemetry.mitigation(mtype=mtype, epoch=epoch, restored_epoch=restored_epoch,
+                                 **detail)
+        what = "anomalous (finite-SDC-shaped)" if mtype == "anomaly_rollback" else "non-finite"
+        warnings.warn(f"{what} loss/KL at epoch {epoch}; rolled back to the chunk-aligned "
+                      f"checkpoint at epoch {restored_epoch} (its weights, optimizer, history "
+                      "and generator states)")
+        rollback_ctx["epoch"] = epoch
+        rollback_ctx["step"] = ckpt.latest_step
+        return state, history
 
     # -------------------------------------------------------------------- fit
     def fit(self, generator: torch.Generator | None = None, num_epochs: int | None = None,
             hooks: Sequence[Callable] = (), hook_every: int = 0,
             state: TrainState | None = None, history: dict | None = None,
-            draws=None, preempt=None) -> tuple[TrainState, HistoryRecord]:
+            draws=None, preempt=None, telemetry=None,
+            fault_plan=None) -> tuple[TrainState, HistoryRecord]:
         """Train in chunks of ``hook_every`` epochs (0: one chunk, no hooks),
         calling each hook as ``hook(trainer, state, epoch)`` after a chunk.
 
@@ -328,7 +503,31 @@ class DIBTrainer:
         pending SIGTERM/SIGINT writes a final chunk-aligned checkpoint
         through the hooks' checkpointer (unless they just wrote it) and
         raises ``TrainingPreempted``.
+
+        ``telemetry`` (an :class:`~dib_tpu_torch.telemetry.events.
+        EventWriter`): a ``chunk`` span and event per chunk (the span waits
+        for the chunk's device work), boundary and mid-chunk heartbeats,
+        the guard's ``anomaly``, ``mitigation`` and ``quarantine`` events,
+        ``fault`` events and a closing ``metrics`` event; nothing is
+        written inside a chunk but the heartbeat thread's beats.
+
+        Divergence guard: each boundary row is checked for non-finite
+        values and anomalies. A bad boundary rolls back to the newest
+        intact checkpoint of the hooks' checkpointer (the weights, Adam's
+        moments and step, the LR schedule's position, the history and the
+        generators' states) and replays from there: for a transient fault
+        the replayed run equals the uninterrupted one bit for bit. Hooks
+        with a ``rewind(epoch)`` drop what they recorded past the restored
+        epoch. A divergence that recurs at the same epoch raises; without
+        a checkpoint the guard warns once and training goes on.
+
+        ``fault_plan`` (a :class:`~dib_tpu_torch.faults.plan.FaultPlan`)
+        fires its due specs after each boundary's hooks, so a checkpoint
+        hook has saved the clean state first.
         """
+        from dib_tpu_torch.telemetry import trace
+        from dib_tpu_torch.telemetry.hooks import FitRecorder
+
         if (generator is None) == (draws is None):
             raise ValueError("give exactly one of generator and draws")
         for hook in hooks:          # hooks refuse what they cannot run before any epoch
@@ -346,23 +545,45 @@ class DIBTrainer:
                 f"History buffer holds {capacity} epochs but {cursor} are already recorded "
                 f"and {num_epochs} more were requested; grow it with "
                 "history_extend(history, n) or train fewer epochs.")
+        recorder = FitRecorder(telemetry,
+                               steps_per_epoch=self.steps_per_epoch * (self.replicas or 1))
         chunk = hook_every if hook_every else num_epochs
         generators = getattr(draws, "generators", None)
-        done = 0
-        while done < num_epochs:
-            if preempt is not None and preempt.requested:
-                from dib_tpu_torch.train.preempt import chunk_aligned_preempt_exit
+        start_epoch, done, chunk_index = int(state.epoch), 0, 0
+        guard = self._new_guard()
+        with trace.use_tracer(recorder.tracer), recorder.heartbeats():
+            while done < num_epochs:
+                if preempt is not None and preempt.requested:
+                    from dib_tpu_torch.train.preempt import chunk_aligned_preempt_exit
 
-                chunk_aligned_preempt_exit(preempt, hooks, state, history, generators,
-                                           chunk)
-            this_chunk = min(chunk, num_epochs - done)
-            state, history = self.run_chunk(state, history, draws, this_chunk)
-            done += this_chunk
-            self._after_chunk(state, history)
-            self.resume_generators, self.latest_history, self.resume_chunk = (
-                generators, history, chunk)
-            for hook in hooks:
-                hook(self, state, state.epoch)
+                    chunk_aligned_preempt_exit(preempt, hooks, state, history, generators,
+                                               chunk, telemetry=telemetry)
+                this_chunk = min(chunk, num_epochs - done)
+                with recorder.chunk_phase(**self._chunk_tags()) as phase:
+                    state, history = self.run_chunk(state, history, draws, this_chunk)
+                    phase.block_on(history["loss"])
+                done += this_chunk
+                chunk_index += 1
+                self.resume_generators, self.latest_history, self.resume_chunk = (
+                    generators, history, chunk)
+                row = self.boundary_row(state, history)
+                recorder.record_chunk(epoch=int(state.epoch), chunk_epochs=this_chunk,
+                                      **self._chunk_fields(row))
+                state, history, replayed = self._check_boundary(
+                    guard, state, history, row, draws, hooks, telemetry, chunk, start_epoch)
+                # a rollback or a quarantine replay moved these
+                self.resume_generators, self.latest_history = generators, history
+                if replayed:
+                    done = int(state.epoch) - start_epoch
+                    continue            # the diverged boundary: no hooks, no faults
+                for hook in hooks:
+                    hook(self, state, state.epoch)
+                if fault_plan is not None and fault_plan.due(chunk_index):
+                    from dib_tpu_torch.faults.inject import apply_due_train_faults
+
+                    state = apply_due_train_faults(fault_plan, chunk_index, state, telemetry)
+        recorder.finish()
+        self._finish_fit(guard)
         return state, self._records(history)
 
     # ------------------------------------------------------------ inspection
@@ -382,3 +603,29 @@ class DIBTrainer:
         if arr is None:
             arr = self.bundle.x_valid if split == "valid" else self.bundle.x_train
         return arr[:, start:start + dims[feature_index]]
+
+
+# ------------------------------------------------------- divergence guard
+#: Suspect rollback targets one fit may quarantine before it declares the
+#: divergence deterministic.
+_MAX_ROLLBACK_QUARANTINES = 2
+
+
+def _row_detail(row: dict) -> dict:
+    """The diverged boundary row as a mitigation event's fields."""
+    return {"loss": float(np.asarray(row["loss"]).ravel()[0]),
+            "val_loss": float(np.asarray(row["val_loss"]).ravel()[0]),
+            "kl_per_feature": [float(x) for x in np.asarray(row["kl_per_feature"]).ravel()]}
+
+
+def rewind_hooks(hooks, epoch: int) -> None:
+    """Call ``rewind(epoch)`` on every hook that has one (looking inside
+    ``Every``, hook combinations and per-replica adapters): after a
+    rollback to ``epoch`` each drops what it recorded past it and returns
+    its draws to where they stood, so the replay measures what the
+    uninterrupted run measured."""
+    from dib_tpu_torch.train.checkpoint import iter_hooks
+
+    for hook in iter_hooks(hooks):
+        if callable(getattr(type(hook), "rewind", None)):
+            hook.rewind(epoch)

@@ -15,8 +15,9 @@
     guard's abort thread exits the process with the same code anyway; the
     previous chunk-aligned checkpoint is then the resume point.
 
-The JAX package's telemetry arguments (the mitigation event, the
-grace-expiry flush) are not ported.
+With telemetry, the boundary path writes a ``preempt_checkpoint``
+mitigation, and ``on_grace_expired`` lets the CLI end the event stream
+before the grace abort's hard exit.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from __future__ import annotations
 import os
 import signal
 import threading
+import time
 
 __all__ = ["PREEMPT_EXIT_CODE", "PreemptionGuard", "TrainingPreempted",
            "chunk_aligned_preempt_exit"]
@@ -63,10 +65,14 @@ class PreemptionGuard:
     A second signal during the grace window exits at once. Arming from a
     thread other than the main one does nothing (``signal.signal``
     refuses); :meth:`request` then sets the flag directly.
+    ``on_grace_expired`` runs (best effort) just before the grace abort's
+    exit.
     """
 
-    def __init__(self, grace_s: float = 30.0):
+    def __init__(self, grace_s: float = 30.0, on_grace_expired=None):
         self.grace_s = float(grace_s)
+        self.on_grace_expired = on_grace_expired
+        self._deadline: float | None = None
         self.signum: int | None = None
         self._requested = threading.Event()
         self._resolved = threading.Event()    # cancels the grace abort
@@ -99,13 +105,26 @@ class PreemptionGuard:
     def request(self, signum: int | None = None) -> None:
         """Mark preemption requested (the handler's body; tests call it)."""
         self.signum = signum
+        self._deadline = time.monotonic() + self.grace_s
         self._requested.set()
         threading.Thread(target=self._abort_after_grace, daemon=True,
                          name="preempt-grace-abort").start()
 
     def _abort_after_grace(self) -> None:
-        if not self._resolved.wait(self.grace_s):
-            os._exit(PREEMPT_EXIT_CODE)
+        if self._resolved.wait(self.grace_s):
+            return
+        if self.on_grace_expired is not None:
+            try:
+                self.on_grace_expired()
+            except Exception:       # a best-effort flush before a hard exit
+                pass
+        os._exit(PREEMPT_EXIT_CODE)
+
+    def remaining_s(self) -> float | None:
+        """Seconds left of the grace budget (None before a request)."""
+        if self._deadline is None:
+            return None
+        return round(max(self._deadline - time.monotonic(), 0.0), 3)
 
     @property
     def requested(self) -> bool:
@@ -116,10 +135,12 @@ class PreemptionGuard:
         self._resolved.set()
 
 
-def chunk_aligned_preempt_exit(guard, hooks, state, history, generators, chunk: int):
+def chunk_aligned_preempt_exit(guard, hooks, state, history, generators, chunk: int,
+                               telemetry=None):
     """The fits' boundary handler for a pending preemption: saves a final
     chunk-aligned checkpoint through the fit's checkpoint hook (unless this
-    boundary's hooks already saved this epoch), then raises
+    boundary's hooks already saved this epoch), writes a
+    ``preempt_checkpoint`` mitigation, then raises
     :class:`TrainingPreempted`."""
     from dib_tpu_torch.train.checkpoint import find_checkpointer
 
@@ -127,5 +148,9 @@ def chunk_aligned_preempt_exit(guard, hooks, state, history, generators, chunk: 
     ckpt = find_checkpointer(hooks)
     if ckpt is not None and ckpt.latest_step != epoch:
         ckpt.save(epoch, state, history, generators, chunk_size=chunk)
+    if telemetry is not None:
+        telemetry.mitigation(mtype="preempt_checkpoint", epoch=epoch,
+                             checkpoint_saved=ckpt is not None,
+                             grace_remaining_s=guard.remaining_s())
     guard.resolved()
     raise TrainingPreempted(epoch, guard.signum, checkpoint_saved=ckpt is not None)

@@ -73,20 +73,20 @@ def test_parser_keeps_every_jax_flag_and_default():
     args = cli.build_parser().parse_args([])
     want = jax_cli.build_parser().parse_args([])
     assert vars(args) == vars(want)
-    assert "writes no event stream" in cli.build_parser().format_help()
+    assert "events.jsonl" in cli.build_parser().format_help()
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["--watchdog"], {}),
-    (["--heartbeat", "beat.json"], {}),
-    (["--watchdog_floor_s", "10"], {}),
+    (["--mesh_data", "2"], {}),
+    (["--runs_root", "runs"], {}),
+    (["--dataset", "double_pendulum"], {}),
     (["--mesh_beta", "2"], {}),
     (["--engine", "shard_map"], {}),
-    (["--telemetry-dir", "events"], {}),
+    (["--dataset", "amorphous_radial_shells"], {}),
     (["--runs-root", "runs"], {}),
     (["--dataset", "diabetes"], {}),
     (["--infonce_loss", "--sweep_beta_ends", "0.1"], {}),
-    ([], {"DIB_FAULT_PLAN": "nan@2"}),
+    (["--dataset", "wine"], {}),
 ])
 def test_unported_flags_are_refused_at_parse_time(monkeypatch, capsys, argv, env):
     for name, value in env.items():
@@ -96,6 +96,21 @@ def test_unported_flags_are_refused_at_parse_time(monkeypatch, capsys, argv, env
     assert excinfo.value.code == 2
     err = capsys.readouterr().err.strip().splitlines()[-1]
     assert "not ported" in err and ROADMAP_ITEM in err, err
+
+
+@pytest.mark.parametrize("argv,env", [
+    (["--watchdog"], {}),
+    (["--heartbeat", "beat.json"], {}),
+    (["--watchdog_floor_s", "10"], {}),
+    (["--watchdog_first_timeout_s", "60"], {}),
+    (["--telemetry-dir", "events"], {}),
+    ([], {"DIB_FAULT_PLAN": "nan@chunk2"}),
+])
+def test_durability_flags_are_ported(monkeypatch, argv, env):
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    args = cli.build_parser().parse_args(["train", *argv])
+    assert cli.refusal(args, {a.dest: a.default for a in cli.build_parser()._actions}) is None
 
 
 @pytest.mark.parametrize("argv", [

@@ -390,3 +390,70 @@ def test_http_server_on_card_matches_the_direct_engine(cuda_device):
         assert payload["replica"]["device"].startswith("cuda")
         for key in ("prediction", "kl_per_feature"):
             np.testing.assert_allclose(payload[key], want[key][:n], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_row_stats_on_a_side_stream_equals_the_same_stream(cuda_device):
+    """``mi_row_stats`` launched under ``torch.cuda.stream(side)`` (the
+    overlapped hooks' path) gives the training stream's result bit for bit,
+    its workspace and outputs allocated on the side stream."""
+    u, mus, logvars = _inputs(cuda_device, 50, 1024, 1024, 32, True)
+    want = density.mi_row_stats(u, mus, logvars)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        got = density.mi_row_stats(u, mus, logvars)
+        host = [t.to("cpu", non_blocking=False) for t in got]
+    torch.cuda.synchronize(cuda_device)
+    for g, w in zip(host, want):
+        assert torch.equal(g, w.cpu())
+
+
+@pytest.mark.cuda
+def test_the_overlap_runner_marks_what_the_side_stream_reads(cuda_device):
+    """A tensor made on the training stream and read by the side stream is
+    freed before the measurement is collected: ``record_stream`` keeps its
+    memory from the training stream's next allocations, and the side
+    stream's result is that of the same call on the training stream."""
+    from dib_tpu_torch.train.overlap import OverlapRunner
+
+    u, mus, logvars = _inputs(cuda_device, 10, 1024, 1024, 32, True)
+    want = density.mi_row_stats(u, mus, logvars)[1].cpu()
+    runner = OverlapRunner()
+    rows = u.clone()
+    pending = runner.launch(lambda: (density.mi_row_stats(rows, mus, logvars)[1],),
+                            cuda_device, epoch=1, reads=[rows])
+    del rows
+    scribble = [torch.full_like(u, float("nan")) for _ in range(4)]   # reuse bait
+    (got,) = pending.collect()
+    assert runner.last_stream != torch.cuda.current_stream(cuda_device)
+    assert got.is_pinned() and torch.equal(got, want) and scribble[0].isnan().all()
+
+
+@pytest.mark.cuda
+def test_overlapped_mi_hooks_on_card_equal_the_plain_hooks(cuda_device):
+    """``InfoPerFeatureHook(overlap=True)`` through a fit on the card: the
+    same bounds and history as ``overlap=False``, its kernels on the side
+    stream."""
+    from dib_tpu_torch.data import get_dataset
+    from dib_tpu_torch.models import DistributedIBModel
+    from dib_tpu_torch.train import DIBTrainer, InfoPerFeatureHook, TrainConfig
+
+    bundle = get_dataset("boolean_circuit")
+    runs = []
+    for overlap in (False, True):
+        model = DistributedIBModel(tuple(bundle.feature_dimensionalities), (32,), (64,), 1, 8,
+                                   device=cuda_device, generator=torch.Generator().manual_seed(0))
+        hook = InfoPerFeatureHook(256, 2, overlap=overlap)
+        trainer = DIBTrainer(model, bundle, TrainConfig(batch_size=64, num_pretraining_epochs=1,
+                                                        num_annealing_epochs=2,
+                                                        steps_per_epoch=4, max_val_points=256),
+                             device=cuda_device)
+        _, history = trainer.fit(torch.Generator(device=cuda_device).manual_seed(1),
+                                 hooks=[hook], hook_every=1)
+        runs.append((history, hook.records, hook))
+    (plain_history, plain, _), (history, overlapped, hook) = runs
+    assert overlapped == plain and len(plain) == 3
+    for name in ("loss", "val_loss", "kl_per_feature"):
+        assert (getattr(history, name) == getattr(plain_history, name)).all(), name
+    assert hook._runner.last_stream is not None
