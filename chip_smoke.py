@@ -94,8 +94,9 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      north star's stacked state and (a)'s), each CLI run's wall time and
      the boolean step, serial and 8 replicas
  13. main path 8, HTTP serving: ``python -m dib_tpu_torch serve`` over
-     phase 12's serial and 8-replica checkpoints, four processes started
-     together: (a) one process: 200 concurrent predicts and encodes of 1 to
+     phase 12's serial and 8-replica checkpoints, five processes started
+     together, each writing its event stream into its ``--outdir`` but the
+     fifth (``--telemetry-dir ''``): (a) one process: 200 concurrent predicts and encodes of 1 to
      300 rows (past the top bucket of 128), each held to
      ``InferenceEngine.from_checkpoint`` at 1e-6; wrong width and
      non-finite 400, unknown model and route 404; ``/healthz``,
@@ -108,7 +109,10 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      respawns it; (d) ``--prefork 2``: both pids serve, ``serve top --once``
      renders the fleet; host-clock timings (requests per second for each,
      latency p50/p99 for 1 and 8 rows at concurrency 1 and 32 beside the
-     direct ``engine.predict``); the kernel launch counts that each serving
+     direct ``engine.predict``, all with the default event stream); the
+     stream's price: 1-row latency p50/p99 at concurrency 1 and 32 on the
+     single process against the fifth, two rounds in turns; the kernel
+     launch counts that each serving
      process publishes on ``/metrics``, read before SIGTERM (the pool's
      engine subprocesses publish none); SIGTERM ends each with exit 0, the
      single process's summary counting every request it served
@@ -130,8 +134,28 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      ``DIB_FAULT_PLAN=stall@chunk2:30s,kill@chunk4``: exit 0 after a stall
      kill and a crash restart, ``history.npz`` bit for bit the
      uninterrupted run's; the seconds from detection to recovery of each
- 15. one JSON line listing each ported kernel
- 16. the last line: ``{"ok": true, "device": {...}}``
+ 15. main path 10, the event stream end to end (nothing trained; phases
+     12-15 write in strict mode): (a) phase 13's streams: every event
+     valid, run_start (mode serve) first, metrics and run_end last, the
+     single process's ok request spans as many as the ok answers and its
+     batch spans' rows as many as the rows sent, the prefork workers'
+     ``worker0/`` and ``worker1/`` under one trace id; (b) phase 12's sweep
+     checkpoint as a zoo in this process, one member behind a
+     ``FlakyEngine`` failed until ejected and re-admitted by a probe: the
+     faults and the ejection then re-admission on its stream; (c) three
+     servers in this process over phase 12's serial checkpoint, served in
+     turns by one client at concurrency 1: two clean (4000 predicts each),
+     one slowed by ``FlakyEngine(delay_s=0.01)`` (500); (d) ``python -m dib_tpu_torch
+     telemetry summarize`` on the serve run, phase 12's serial and sweep
+     runs, phase 14's rollback run and a clean run (request counts as
+     sent, the server's p50 within the client's, the rollback's nan
+     injected, detected and recovered), ``compare --threshold 0.5`` (clean
+     pair exit 0, the slowed run exit 1 on its dispatch p99), ``report``
+     for every run and ``--index`` for the runs root, and ``runs list``
+     holding the runs that phase 12 registered through ``DIB_RUNS_ROOT``
+     and phase 13 through ``--runs-root``
+ 16. one JSON line listing each ported kernel
+ 17. the last line: ``{"ok": true, "device": {...}}``
 
 Without a CUDA device it exits nonzero before printing any result.
 """
@@ -2078,7 +2102,8 @@ def drive_cli(card, sweep_run, tmp):
                 amorphous_launches[name] for name in serial["launches"]}
     return dict(launches=launches, serve_err=serve_err, checkpoint_ms=checkpoint_ms,
                 step_ms=step_ms, serial_ckpt=serial["whole_ckpt"],
-                sweep_ckpt=sweep["whole_ckpt"])
+                sweep_ckpt=sweep["whole_ckpt"], serial_dir=serial["whole"],
+                sweep_dir=sweep["whole"])
 
 
 # --------------------------------------------------------------------------
@@ -2373,7 +2398,7 @@ def check_serial_server(server, direct, x):
           f"tol={SERVE_TOL}; wrong width 400, non-finite 400, unknown model 404, unknown route "
           f"404; /healthz {health['healthy_replicas']} healthy on {health['replicas'][0]['device']}"
           f", /v1/models, /metrics as JSON and Prometheus text")
-    return HTTP_REQUESTS, worst
+    return HTTP_REQUESTS, sum(len(rows) for _, rows in jobs), worst
 
 
 def check_sweep_server(server, members, ends, x):
@@ -2507,14 +2532,15 @@ def check_prefork_server(server, card):
 def served_launches(procs) -> dict:
     """The kernel launch counts that the serving processes publish on
     ``/metrics``, read before SIGTERM and summed: the single process, the
-    sweep's, the pool's front process and both prefork workers (each pid
+    sweep's, the pool's front process, the one without a stream and both
+    prefork workers (each pid
     through ``serve top``'s scrape). Each process starts with every count
     at 0. The pool's two engine subprocesses publish nothing and are not
     read."""
     from dib_tpu_torch.serve.top import scrape_fleet
 
     per_process = {}
-    for label in ("serial", "sweep", "workers"):
+    for label in ("serial", "sweep", "workers", "quiet"):
         snapshot = http_json(procs[label].url, "/metrics")[1]
         per_process[f"{label} pid {snapshot['pid']}"] = snapshot["kernel_launches"]
     fleet = scrape_fleet(procs["prefork"].url, 2, timeout_s=30.0)
@@ -2536,25 +2562,28 @@ def time_http(card, procs, direct, x):
     at closed-loop concurrency 32 (1 row) for 1 process, --prefork 2 and
     --workers 2; request latency p50/p99 for 1 and 8 rows at concurrency 1
     and 32 on the single process, beside the direct ``engine.predict``.
-    Returns (the figures, the requests sent to the single process)."""
+    The serving processes write their event stream (the default
+    ``--telemetry-dir``), so these figures include its cost. Returns (the
+    figures, the requests and the rows sent to the single process)."""
     rates = {name: [] for name in ("1 process", "prefork 2", "workers 2")}
     urls = {"1 process": procs["serial"].url, "prefork 2": procs["prefork"].url,
             "workers 2": procs["workers"].url}
     latency = {}
-    sent = 0
+    sent = sent_rows = 0
     for turn in (0, 1):
         order = list(rates) if turn == 0 else list(rates)[::-1]
         for name in order:
             n = TIMING_REQUESTS[HTTP_CONCURRENCY]
             seconds, wall = closed_loop(urls[name], x[:1], HTTP_CONCURRENCY, n)
             rates[name].append(len(seconds) / wall)
-            sent += len(seconds) if name == "1 process" else 0
+            if name == "1 process":
+                sent, sent_rows = sent + len(seconds), sent_rows + len(seconds)
         for rows in (1, 8):
             for conc in (1, HTTP_CONCURRENCY):
                 seconds, _ = closed_loop(urls["1 process"], x[:rows], conc,
                                          TIMING_REQUESTS[conc])
                 latency.setdefault(f"{rows} row(s), concurrency {conc}", []).extend(seconds)
-                sent += len(seconds)
+                sent, sent_rows = sent + len(seconds), sent_rows + rows * len(seconds)
     direct_s = {}
     for rows in (1, 8):
         direct.predict(x[:rows])
@@ -2570,18 +2599,45 @@ def time_http(card, procs, direct, x):
         "direct_predict_ms": direct_s,
     }
     print(f"timing [{card}] HTTP serving (host clock, closed loop, keep-alive connections "
-          f"from {LOAD_THREADS} threads per client process; two rounds in turns): "
+          f"from {LOAD_THREADS} threads per client process; two rounds in turns; every serving "
+          f"process writes its event stream, the default --telemetry-dir): "
           + json.dumps(figures))
+    return figures, sent, sent_rows
+
+
+def time_stream_cost(card, procs, x):
+    """The event stream's price per request: ``POST /v1/predict`` latency
+    p50/p99 with 1 row at concurrency 1 and 32, on the single process (the
+    default stream) and on one started with ``--telemetry-dir ''``, two
+    rounds in turns (off, on, then on, off). Returns (the figures, the
+    requests sent to the single process)."""
+    latency, sent = {}, 0
+    for turn in (0, 1):
+        order = ("off", "on") if turn == 0 else ("on", "off")
+        for conc in (1, HTTP_CONCURRENCY):
+            for stream in order:
+                proc = procs["serial" if stream == "on" else "quiet"]
+                seconds, _ = closed_loop(proc.url, x[:1], conc, TIMING_REQUESTS[conc])
+                latency.setdefault(f"stream {stream}, concurrency {conc}", []).extend(seconds)
+                sent += len(seconds) if stream == "on" else 0
+    figures = {k: quantiles_ms(v) for k, v in latency.items()}
+    print(f"stream cost [{card}] POST /v1/predict, 1 row, latency ms with the default event "
+          f"stream (on) and --telemetry-dir '' (off), host clock, closed loop, two rounds in "
+          f"turns: " + json.dumps(figures))
     return figures, sent
 
 
-def drive_http(card, serial_ckpt, sweep_ckpt, tmp):
+def drive_http(card, serial_ckpt, sweep_ckpt, tmp, runs_root):
     """Phase 13: ``python -m dib_tpu_torch serve`` over phase 12's serial
     and 8-replica checkpoints as processes of their own (single, sweep with
     quotas, admission and the cache, --workers 2, --prefork 2), started
     together; every answer held to the direct engine; timings; SIGTERM
     ends each with exit 0 and, for the single process, a summary line
-    counting every request it served."""
+    counting every request it served. Each process writes its event stream
+    into its ``--outdir`` (the default ``--telemetry-dir``; a fifth process,
+    ``--telemetry-dir ''``, writes none and prices the stream); the single
+    process and the prefork fleet register their runs under ``runs_root``
+    at SIGTERM."""
     phase_t0 = time.perf_counter()
     serial, members, ends, x = serve_direct_engines(serial_ckpt, sweep_ckpt)
     out = os.path.join(tmp, "serve")
@@ -2589,25 +2645,28 @@ def drive_http(card, serial_ckpt, sweep_ckpt, tmp):
     try:
         t0 = time.perf_counter()
         for label, argv in (
-                ("serial", ["--checkpoint_dir", serial_ckpt]),
+                ("serial", ["--checkpoint_dir", serial_ckpt, "--runs-root", runs_root]),
                 ("sweep", ["--checkpoint_dir", sweep_ckpt, *CLI_SWEEP, "--quota_rps", QUOTA[0],
                            "--quota_burst", QUOTA[1], "--admission_limit", ADMISSION_LIMIT,
                            "--response_cache", RESPONSE_CACHE]),
                 ("workers", ["--checkpoint_dir", serial_ckpt, "--workers", "2",
                              "--probe_after_s", "0.5", "--probe_timeout_s", "60"]),
-                ("prefork", ["--checkpoint_dir", serial_ckpt, "--prefork", "2"])):
+                ("prefork", ["--checkpoint_dir", serial_ckpt, "--prefork", "2",
+                             "--runs-root", runs_root]),
+                ("quiet", ["--checkpoint_dir", serial_ckpt, "--telemetry-dir", ""])):
             procs[label] = ServeProcess(label, [*argv, "--port", "0",
                                                 "--outdir", os.path.join(out, label)])
         hellos = {label: proc.wait_hello() for label, proc in procs.items()}
         start_s = time.perf_counter() - t0
-        print(f"HTTP: 4 serve processes started together, every hello line after "
+        print(f"HTTP: 5 serve processes started together, every hello line after "
               f"{start_s:.1f} s: " + json.dumps(hellos))
-        sent, serve_err = check_serial_server(procs["serial"], serial, x)
+        sent, sent_rows, serve_err = check_serial_server(procs["serial"], serial, x)
         sweep_err = check_sweep_server(procs["sweep"], members, ends, x)
         check_pool_server(procs["workers"], serial, x)
         check_prefork_server(procs["prefork"], card)
-        figures, timed = time_http(card, procs, serial, x)
-        sent += timed
+        figures, timed, timed_rows = time_http(card, procs, serial, x)
+        cost, priced = time_stream_cost(card, procs, x)
+        sent, sent_rows = sent + timed + priced, sent_rows + timed_rows + priced
         got = served_launches(procs)
         for label, proc in procs.items():
             code, lines = proc.stop()
@@ -2615,13 +2674,15 @@ def drive_http(card, serial_ckpt, sweep_ckpt, tmp):
                 fail(f"serve {label}: SIGTERM gave exit {code}\n{proc.stderr_tail()}")
             if label == "serial" and (not lines or lines[-1].get("served_requests") != sent):
                 fail(f"serve serial: summary {lines[-1:]} after {sent} requests")
-        print(f"HTTP: SIGTERM stopped all 4 with exit 0; the single process's summary: "
+        print(f"HTTP: SIGTERM stopped all 5 with exit 0; the single process's summary: "
               f"served_requests {sent}, as sent; phase 13 took "
               f"{time.perf_counter() - phase_t0:.1f} s")
     finally:
         for proc in procs.values():
             proc.kill()
-    return dict(serve_err=max(serve_err, sweep_err), figures=figures, launches=got)
+    return dict(serve_err=max(serve_err, sweep_err), figures=figures, launches=got,
+                stream_cost=cost, sent=sent, sent_rows=sent_rows,
+                dirs={label: os.path.join(out, label) for label in procs}, x=x, serial=serial)
 
 
 # --------------------------------------------------------------------------
@@ -3070,23 +3131,303 @@ def drive_watchdog(card, tmp):
                 stall_to_chunk=stall_to_chunk)
 
 
-def drive_durability(card, flagship, sweep_run):
-    """Phase 14: (a) the serial rollback, (b) the sweep's quarantine, (c) the
-    overlapped hooks, (d) the watchdog; event streams in strict mode."""
-    os.environ["DIB_TELEMETRY_STRICT"] = "1"
-    try:
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_faults_") as tmp:
-            t0 = time.perf_counter()
-            rollback = drive_rollback(card, flagship, tmp)
-            quarantine = drive_quarantine(card, sweep_run, tmp)
-            overlap = drive_overlap(card, flagship, sweep_run, tmp)
-            watchdog = drive_watchdog(card, tmp)
-            print(f"phase 14: {time.perf_counter() - t0:.1f} s")
-    finally:
-        os.environ.pop("DIB_TELEMETRY_STRICT", None)
+def drive_durability(card, flagship, sweep_run, tmp):
+    """Phase 14, in the directory ``tmp``: (a) the serial rollback, (b) the
+    sweep's quarantine, (c) the overlapped hooks, (d) the watchdog (the
+    caller writes the event streams in strict mode). Phase 15 reads (a)'s
+    stream, ``<tmp>/faulted``."""
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    rollback = drive_rollback(card, flagship, tmp)
+    quarantine = drive_quarantine(card, sweep_run, tmp)
+    overlap = drive_overlap(card, flagship, sweep_run, tmp)
+    watchdog = drive_watchdog(card, tmp)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s")
     return dict(launches=add_launches(rollback["launches"], quarantine["launches"],
                                       overlap["launches"], watchdog["launches"]),
-                rollback=rollback, quarantine=quarantine, overlap=overlap, watchdog=watchdog)
+                rollback=rollback, quarantine=quarantine, overlap=overlap, watchdog=watchdog,
+                rollback_dir=os.path.join(tmp, "faulted"))
+
+
+# --------------------------------------------------------------------------
+# phase 15: main path 10, the event stream end to end
+
+# predicts of 1 row to each clean in-process server, served in turns at
+# concurrency 1; with fewer, a phase's p99 is the host's tail and two clean
+# runs differ past the threshold (scripts/compare_noise.py, PERF.md)
+STREAM_REQUESTS = 4000
+SLOW_REQUESTS = 500          # the slowed run's predicts: its p99 is the delay's
+STREAM_DELAY_S = 0.01        # the slowed run's injected delay per engine dispatch
+STREAM_THRESHOLD = "0.5"     # telemetry compare's relative threshold
+EJECTED = 2                  # the sweep zoo member failed until ejected (beta_end 0.1)
+
+
+def telemetry_cli(*argv, expect=0) -> str:
+    """``python -m dib_tpu_torch telemetry ...`` in a process of its own;
+    fails unless it exits with ``expect``. Returns its stdout."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([*CLI_COMMAND, "telemetry", *argv], cwd=ROOT, env=env, text=True,
+                          capture_output=True, timeout=300)
+    if proc.returncode != expect:
+        fail(f"telemetry {' '.join(argv)}: exit {proc.returncode}, expected {expect}\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def serve_stream(label, directory, ok=None, rows=None):
+    """A serving run's stream: every event valid under the strict schema,
+    ``run_start`` with ``mode: "serve"`` first, ``metrics`` then ``run_end``
+    last; with ``ok``/``rows``, that many ``status="ok"`` request spans and
+    that many rows over the batch spans. Returns the events."""
+    events = read_stream(label, directory)
+    kinds = [e["type"] for e in events]
+    if not events or kinds[0] != "run_start" or kinds[-2:] != ["metrics", "run_end"] or \
+            events[0]["manifest"].get("mode") != "serve" or events[-1]["status"] != "ok":
+        fail(f"{label}: the stream of {directory} reads {kinds[:3]} ... {kinds[-3:]}; expected "
+             f"run_start (mode serve) ... metrics, run_end ok")
+    spans = [e for e in events if e["type"] == "span"]
+    n_ok = sum(e["name"] == "request" and e["status"] == "ok" for e in spans)
+    n_rows = sum(e["rows"] for e in spans if e["name"] == "batch")
+    if (ok is not None and n_ok != ok) or (rows is not None and n_rows != rows):
+        fail(f"{label}: {n_ok} ok request spans and {n_rows} batch rows; the client got "
+             f"{ok} ok answers and sent {rows} rows")
+    return events
+
+
+# one client process at concurrency 1 over several servers in turns (argv:
+# pairs of url and request count): each round sends one request to every
+# server with requests left, so drift of the host over the run reaches each
+# server alike; prints each server's (latency s, status) list as JSON
+TURNS_CLIENT = r"""
+import http.client, json, sys, time
+from urllib.parse import urlparse
+urls, counts = [urlparse(u) for u in sys.argv[1::2]], [int(n) for n in sys.argv[2::2]]
+body = sys.stdin.readline().encode()
+conns = [http.client.HTTPConnection(u.hostname, u.port, timeout=120) for u in urls]
+out = [[] for _ in urls]
+order = [k for r in range(max(counts)) for k in range(len(urls)) if r < counts[k]]
+for k in order:
+    t0 = time.perf_counter()
+    conns[k].request("POST", "/v1/predict", body, {"Content-Type": "application/json"})
+    resp = conns[k].getresponse()
+    resp.read()
+    out[k].append((time.perf_counter() - t0, resp.status))
+print(json.dumps(out), flush=True)
+"""
+
+
+def turns(targets: dict, x) -> dict:
+    """TURNS_CLIENT over ``targets`` (url -> requests), predicts of 1 row;
+    fails on any status but 200. Returns each url's latencies (s)."""
+    client = subprocess.run(
+        [sys.executable, "-c", TURNS_CLIENT, *[str(a) for item in targets.items() for a in item]],
+        input=json.dumps({"x": x[:1].tolist()}) + "\n", capture_output=True, text=True,
+        timeout=900)
+    if client.returncode != 0:
+        fail(f"the turns client exited {client.returncode}\n{client.stderr}")
+    latencies = {}
+    for (url, n), answered in zip(targets.items(), json.loads(client.stdout)):
+        if {status for _, status in answered} != {200} or len(answered) != n:
+            fail(f"turns on {url}: statuses {sorted({status for _, status in answered})}, "
+                 f"{len(answered)} answers of {n}")
+        latencies[url] = [seconds for seconds, _ in answered]
+    return latencies
+
+
+def in_process_serve(runs: dict, engine, x) -> dict:
+    """One ``DIBServer`` in this process per entry of ``runs`` (directory ->
+    (injected delay s, requests)), each over ``engine`` (behind a
+    ``FlakyEngine`` that sleeps that long per dispatch when it is not 0)
+    and writing its stream into its directory; one client sends each server
+    its requests, predicts of 1 row, in turns. Returns each directory's
+    client latencies (s)."""
+    from dib_tpu_torch.faults import FlakyEngine
+    from dib_tpu_torch.serve import DIBServer, MicroBatcher, ReplicaEntry, ReplicaRouter
+    from dib_tpu_torch.telemetry import EventWriter, MetricsRegistry, runtime_manifest
+    from dib_tpu_torch.telemetry.trace import Tracer
+
+    servers = {}
+    try:
+        for directory, (delay_s, _) in runs.items():
+            writer = EventWriter(directory)
+            writer.run_start(runtime_manifest(extra={"mode": "serve", "delay_s": delay_s}))
+            registry, tracer = MetricsRegistry(), Tracer(writer)
+            replica = FlakyEngine(engine, delay_s=delay_s) if delay_s else engine
+            router = ReplicaRouter([ReplicaEntry(replica, MicroBatcher(replica, tracer=tracer,
+                                                                       registry=registry), 0)],
+                                   probe_after_s=0.0, telemetry=writer, registry=registry)
+            servers[directory] = DIBServer(router, telemetry=writer, registry=registry,
+                                           tracer=tracer).start()
+        by_url = turns({servers[d].url: n for d, (_, n) in runs.items()}, x)
+    finally:
+        for server in servers.values():
+            server.close()
+    for directory, (_, n) in runs.items():
+        serve_stream(f"in-process serving {directory}", directory, ok=n, rows=n)
+    return {directory: by_url[servers[directory].url] for directory in runs}
+
+
+def sweep_zoo_drill(directory, sweep_ckpt, x):
+    """Phase 12's 8-member sweep checkpoint as a zoo in this process: member
+    EJECTED behind a ``FlakyEngine`` fails a request's dispatch and its
+    retry, is ejected (the request answered by the other member of its
+    endpoint), re-admitted by a probe, and answers again."""
+    from dib_tpu_torch import cli
+    from dib_tpu_torch.faults import FlakyEngine
+    from dib_tpu_torch.parallel import BetaSweepTrainer
+    from dib_tpu_torch.serve import DIBServer, ModelZoo
+    from dib_tpu_torch.telemetry import EventWriter, MetricsRegistry, runtime_manifest
+    from dib_tpu_torch.telemetry.trace import Tracer
+
+    args = cli.serve_parser().parse_args(["--checkpoint_dir", sweep_ckpt, *CLI_SWEEP])
+    bundle = cli._bundle_from_args(args)
+    ends = np.repeat(np.asarray(args.sweep_beta_ends, np.float64), args.sweep_repeats)
+    stacked, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE, replicas=len(ends))
+    sweep = BetaSweepTrainer(stacked, bundle, cli._serve_config(args), args.beta_start, ends,
+                             device=CLI_DEVICE)
+    writer = EventWriter(directory)
+    writer.run_start(runtime_manifest(extra={"mode": "serve", "sweep": True}))
+    registry, tracer = MetricsRegistry(), Tracer(writer)
+    zoo = ModelZoo(telemetry=writer, registry=registry)
+    router = zoo.add_sweep_checkpoint("default", sweep_ckpt, sweep, telemetry=writer,
+                                      tracer=tracer, registry=registry, eject_after=1,
+                                      probe_after_s=0.0)
+    entry = router.entries[EJECTED]
+    flaky = FlakyEngine(entry.engine, telemetry=writer, replica=EJECTED)
+    entry.engine = entry.batcher.engine = flaky
+    server = DIBServer(zoo, telemetry=writer, registry=registry, tracer=tracer).start()
+    body = {"x": x[:4].tolist(), "beta": float(ends[EJECTED])}
+    try:
+        answered = [http_json(server.url, "/v1/predict", body)]
+        flaky.fail_next = 2          # the batch and its per-request retry
+        answered.append(http_json(server.url, "/v1/predict", body))
+        ejected = entry.ejected
+        readmitted = router.probe_ejected(force=True)
+        answered.append(http_json(server.url, "/v1/predict", body))
+    finally:
+        server.close()
+    replicas = [payload.get("replica", {}).get("replica") for _, payload in answered]
+    if [status for status, _ in answered] != [200] * 3 or not ejected or readmitted != 1 or \
+            replicas[0] != EJECTED or replicas[1] == EJECTED or replicas[2] != EJECTED:
+        fail(f"sweep zoo drill: statuses {[a[0] for a in answered]}, replicas {replicas}, "
+             f"ejected {ejected}, re-admitted {readmitted}")
+    events = serve_stream("sweep zoo drill", directory, ok=3, rows=12)
+    mitigations = [(e["mtype"], e.get("replica")) for e in events if e["type"] == "mitigation"]
+    faults = [(e["kind"], e.get("replica")) for e in events if e["type"] == "fault"]
+    if mitigations != [("replica_ejected", EJECTED), ("replica_readmitted", EJECTED)] or \
+            faults != [("replica_error", EJECTED)] * 2:
+        fail(f"sweep zoo drill: mitigations {mitigations}, faults {faults}")
+    return dict(replicas=replicas, ends=ends, events=len(events))
+
+
+def drive_events(card, tmp, cli_run, http_run, durability, runs_root):
+    """Phase 15: the event streams that phases 12-14 wrote, and three more
+    serving runs in this process, read back with ``python -m dib_tpu_torch
+    telemetry``; nothing is trained."""
+    phase_t0 = time.perf_counter()
+    reset_launches()
+    dirs = http_run["dirs"]
+    # (a) the serving streams of phase 13
+    serial = serve_stream("serve serial", dirs["serial"], ok=http_run["sent"],
+                          rows=http_run["sent_rows"])
+    trace_ids = set()
+    for k in range(2):
+        worker = serve_stream(f"serve prefork worker{k}", os.path.join(dirs["prefork"],
+                                                                       f"worker{k}"))
+        trace_ids |= {(e.get("ctx") or {}).get("trace_id") for e in worker}
+    if len(trace_ids) != 1 or None in trace_ids:
+        fail(f"serve prefork: the workers' streams carry trace ids {trace_ids}, expected one")
+    for label in ("sweep", "workers"):
+        serve_stream(f"serve {label}", dirs[label])
+    if os.path.exists(os.path.join(dirs["quiet"], "events.jsonl")):
+        fail("serve --telemetry-dir '': a stream was written")
+    print(f"event stream (a): phase 13's serve processes each wrote <outdir>/events.jsonl, "
+          f"every event valid under the strict schema, run_start (mode serve) first, metrics "
+          f"and run_end last; the single process's {len(serial)} events hold "
+          f"{http_run['sent']} ok request spans, as the client got, and batch spans of "
+          f"{http_run['sent_rows']} rows, as sent; the prefork workers wrote worker0/ and "
+          f"worker1/ under one trace id {trace_ids.pop()}; --telemetry-dir '' wrote none")
+    # (b) replica ejection and re-admission in a sweep zoo
+    drill = sweep_zoo_drill(os.path.join(tmp, "events", "zoo"), cli_run["sweep_ckpt"],
+                            http_run["x"])
+    print(f"event stream (b): the 8-member sweep zoo, member {EJECTED} (beta_end "
+          f"{drill['ends'][EJECTED]}) failed until ejected and re-admitted by a probe: answers "
+          f"from members {drill['replicas']}; its {drill['events']} events read fault "
+          f"replica_error x2, mitigation replica_ejected then replica_readmitted for member "
+          f"{EJECTED}, then metrics, run_end")
+    # (c) three servers in this process, served in turns: two clean, one slowed
+    runs = {name: os.path.join(tmp, "events", name) for name in ("clean_a", "clean_b", "slow")}
+    latencies = in_process_serve({path: (STREAM_DELAY_S, SLOW_REQUESTS) if name == "slow"
+                                  else (0.0, STREAM_REQUESTS) for name, path in runs.items()},
+                                 http_run["serial"], http_run["x"])
+    client = {name: latencies[path] for name, path in runs.items()}
+    # (d) the reader
+    read = {"serve serial": dirs["serial"], "CLI serial": cli_run["serial_dir"],
+            "CLI sweep": cli_run["sweep_dir"], "rollback": durability["rollback_dir"],
+            "clean in-process serve": runs["clean_a"]}
+    records = {label: json.loads(telemetry_cli("summarize", path))
+               for label, path in read.items()}
+    served = records["serve serial"]["serving"]
+    if served["requests"] != http_run["sent"] or served["statuses"] != {"ok": http_run["sent"]}:
+        fail(f"summarize serve serial: serving {served}, expected {http_run['sent']} ok")
+    clean = records["clean in-process serve"]["serving"]
+    client_p50 = quantiles_ms(client["clean_a"])["p50"]
+    if clean["requests"] != STREAM_REQUESTS or not 0 < clean["request_p50_ms"] <= client_p50:
+        fail(f"summarize clean in-process serve: {clean['requests']} requests, p50 "
+             f"{clean['request_p50_ms']} ms against the client's {client_p50} ms")
+    for label, replicas in (("CLI serial", 1), ("CLI sweep", 8)):
+        record = records[label]      # a sweep's chunk events count every member's steps
+        if record["status"] != "ok" or record["total_steps"] != CLI_EPOCHS * 8 * replicas or \
+                record["num_chunks"] != CLI_EPOCHS // CLI_CADENCE:
+            fail(f"summarize {label}: {record}")
+    faults = records["rollback"].get("faults") or {}
+    if faults.get("by_kind") != {"nan": {"injected": 1, "detected": 1, "recovered": 1}} or \
+            records["rollback"]["mitigations"] != {"divergence_rollback": 1}:
+        fail(f"summarize rollback: faults {faults}, mitigations "
+             f"{records['rollback']['mitigations']}")
+    steady = json.loads(telemetry_cli("compare", runs["clean_a"], runs["clean_b"],
+                                      "--threshold", STREAM_THRESHOLD, expect=0))
+    slowed = json.loads(telemetry_cli("compare", runs["clean_a"], runs["slow"],
+                                      "--threshold", STREAM_THRESHOLD, expect=1))
+    dispatch = slowed["fields"].get("serving_phase_dispatch_p99_ms") or {}
+    if not dispatch.get("regressed") or slowed["fields"]["faults_undetected"]["regressed"]:
+        fail(f"compare slowed: {json.dumps(slowed['fields'])}")
+    reports = {label: telemetry_cli("report", path).strip()
+               for label, path in {**read, **runs}.items()}
+    for label, path in reports.items():
+        with open(path) as f:
+            if not f.read().startswith("<!DOCTYPE html>"):
+                fail(f"telemetry report {label}: {path} is not the HTML report")
+    index = telemetry_cli("report", "--index", "--runs-root", runs_root).strip()
+    listed = telemetry_cli("runs", "list", "--runs-root", runs_root)
+    registered = {"CLI serial": cli_run["serial_dir"], "CLI sweep": cli_run["sweep_dir"],
+                  "serve serial": dirs["serial"],
+                  **{f"serve prefork worker{k}": os.path.join(dirs["prefork"], f"worker{k}")
+                     for k in range(2)}}
+    for label, path in registered.items():
+        run_id = read_stream(label, path)[0]["run"]
+        if run_id not in listed:
+            fail(f"telemetry runs list: {label} ({run_id}) is not registered:\n{listed}")
+    launches = read_launches()
+    print(f"main path launches (event stream: phase 15's serving runs and readers; serving "
+          f"runs cuBLAS matmuls and the readers only the host): {json.dumps(launches)}")
+    print(f"event stream (c, d): python -m dib_tpu_torch telemetry summarize exit 0 on "
+          f"{', '.join(read)}; the serve record counts {served['requests']} requests as sent "
+          f"(p50 {served['request_p50_ms']} ms, p99 {served['request_p99_ms']} ms); clean_a "
+          f"{clean['requests']} requests, server p50 {clean['request_p50_ms']} ms <= the "
+          f"client's {client_p50} ms; the rollback's faults block nan injected 1, detected 1, "
+          f"recovered 1; compare --threshold {STREAM_THRESHOLD} of two clean runs exit 0, "
+          f"against a run slowed by FlakyEngine(delay_s={STREAM_DELAY_S}) exit 1 (dispatch "
+          f"p99 {dispatch.get('a')} -> {dispatch.get('b')} ms); report wrote "
+          f"{len(reports)} HTML files and the index {index}; runs list holds "
+          f"{', '.join(registered)} (DIB_RUNS_ROOT for train, --runs-root for serve)")
+    print(f"timing [{card}] in-process serving, predicts of 1 row at concurrency 1 "
+          f"({STREAM_REQUESTS} to each clean server, {SLOW_REQUESTS} to the slowed one), the "
+          f"three servers in turns, client latency ms (host clock): " + json.dumps(
+              {name: quantiles_ms(v) for name, v in client.items()})
+          + f"; server request p50/p99 ms of clean_a {clean['request_p50_ms']}/"
+          f"{clean['request_p99_ms']}; phase 15 took {time.perf_counter() - phase_t0:.1f} s")
+    return dict(launches=launches)
 
 
 # --------------------------------------------------------------------------
@@ -3393,7 +3734,7 @@ def main() -> int:
     flash_err, flash_bf16_err = check_flash()
     density_errs = check_log_density_mat()
 
-    # ---- 4-10 and 12-14. main paths and their checks -------------------
+    # ---- 4-10 and 12-15. main paths and their checks -------------------
     serving = serve_and_query()
     flagship = train_flagship()
     paths_step = compare_paths(flagship)
@@ -3403,10 +3744,24 @@ def main() -> int:
     sweep_run = drive_sweep()
     northstar = drive_northstar()
     card_vs_cpu = hold_bf16_card_vs_cpu(flagship)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        cli_run = drive_cli(card, sweep_run, tmp)
-        http_run = drive_http(card, cli_run["serial_ckpt"], cli_run["sweep_ckpt"], tmp)
-    durability = drive_durability(card, flagship, sweep_run)
+    # phases 12-15 write their event streams in strict mode; phase 12's CLI
+    # runs register in the run registry through DIB_RUNS_ROOT, phase 13's
+    # serve processes through --runs-root
+    os.environ["DIB_TELEMETRY_STRICT"] = "1"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+            runs_root = os.path.join(tmp, "runs")
+            os.environ["DIB_RUNS_ROOT"] = runs_root
+            try:
+                cli_run = drive_cli(card, sweep_run, tmp)
+            finally:
+                os.environ.pop("DIB_RUNS_ROOT", None)
+            http_run = drive_http(card, cli_run["serial_ckpt"], cli_run["sweep_ckpt"], tmp,
+                                  runs_root)
+            durability = drive_durability(card, flagship, sweep_run, os.path.join(tmp, "faults"))
+            events_run = drive_events(card, tmp, cli_run, http_run, durability, runs_root)
+    finally:
+        os.environ.pop("DIB_TELEMETRY_STRICT", None)
     bench_launches = run_microbench()
 
     # ---- 11. timings ---------------------------------------------------
@@ -3470,10 +3825,11 @@ def main() -> int:
           f"(host clock, one run); probe hook {probe_ms:.4f} ms per call")
     time_sweep(card, sweep_run, northstar, paths_step, flagship)
 
-    # ---- 15-16. summary lines ------------------------------------------
+    # ---- 16-17. summary lines ------------------------------------------
     runs = (serving["launches"], flagship["launches"], driver["launches"],
             sweep_run["launches"], northstar["launches"], cli_run["launches"],
-            http_run["launches"], durability["launches"], bench_launches)
+            http_run["launches"], durability["launches"], events_run["launches"],
+            bench_launches)
     total = {name: sum(r.get(name, 0) for r in runs)
              for name in ("mi_row_stats", "flash_attention", "flash_attention_bf16",
                           "log_density_mat")}

@@ -1,5 +1,5 @@
 """Command-line interface of the port: ``python -m dib_tpu_torch [train] ...``,
-``workload`` and ``serve`` (counterpart of ``dib_tpu/cli.py``).
+``workload``, ``serve`` and ``telemetry`` (counterpart of ``dib_tpu/cli.py``).
 
 ``train`` takes the JAX package's flags with the same defaults and trains a
 ``DistributedIBModel`` on a registered dataset, serially or, with
@@ -19,14 +19,18 @@ the flagship drivers (``--telemetry-dir`` brackets the run with
 ``serve`` serves a checkpoint that ``train`` wrote over the JSON HTTP API of
 :mod:`dib_tpu_torch.serve` (serially or a sweep's β-labeled members; in
 process, behind ``--workers`` engine subprocesses, or as a ``--prefork``
-fleet), and ``serve top`` watches a running fleet.
+fleet) and writes the serving run's event stream into ``--outdir`` (each
+prefork worker into ``<outdir>/worker<K>``), and ``serve top`` watches a
+running fleet. ``telemetry summarize|compare|report|runs`` reads the
+streams back (``telemetry/summary.py``). ``--runs-root`` (or
+``DIB_RUNS_ROOT``) registers a ``train``, ``workload`` or ``serve`` run in
+the run registry at its end.
 
 What the port does not implement is refused before any training, with one
-line naming its item in ROADMAP.md, never ignored: the run registry
-(``--runs-root``, item 6), serve's event stream (``serve --telemetry-dir``,
-item 3), meshes (``--mesh_*``, ``--engine shard_map``, item 7), the other
-subcommands (item 6) and workloads (item 5), datasets the port's registry
-lacks (item 4), contrastive sweeps (item 8), and serve's
+line naming its item in ROADMAP.md, never ignored: meshes (``--mesh_*``,
+``--engine shard_map``, item 7), the other subcommands and ``telemetry
+tail|check|fleet`` (item 6), the other workloads (item 5), datasets the
+port's registry lacks (item 4), contrastive sweeps (item 8), and serve's
 ``--exec_cache``.
 
 Artifacts (in ``--artifact_outdir``), written in this order:
@@ -58,8 +62,6 @@ from typing import Sequence
 
 _ITEM = "ROADMAP.md queue 1, item {}"
 JAX_CHECKPOINTS = _ITEM.format("1 (reading JAX/Orbax checkpoints)")
-SERVE_EVENTS = _ITEM.format("3 (the serving event stream)")
-RUNS_REGISTRY = _ITEM.format("6 (the run registry, which needs telemetry/summary.py)")
 DATASETS = _ITEM.format("4 (the tabular and pendulum datasets)")
 WORKLOADS = _ITEM.format("5 (the other workloads)")
 SUBCOMMANDS = _ITEM.format("6 (the CLI's other subcommands)")
@@ -70,7 +72,6 @@ SERVE_GRAPHS = ("ROADMAP.md, waiting for the port's benchmark: per-bucket CUDA g
 
 # train flags the port refuses when given a value other than the default
 REFUSED_FLAGS = {
-    "runs_root": RUNS_REGISTRY,
     "mesh_beta": MULTI_GPU,
     "mesh_data": MULTI_GPU,
     "engine": MULTI_GPU,
@@ -78,7 +79,6 @@ REFUSED_FLAGS = {
 # values of those flags that do what the port does: 'vmap' is its stacked program
 ACCEPTED_VALUES = {"engine": ("vmap",)}
 REFUSED_SUBCOMMANDS = {
-    "telemetry": SUBCOMMANDS,
     "lint": SUBCOMMANDS,
     "sched": SUBCOMMANDS,
     "stream": SUBCOMMANDS,
@@ -88,17 +88,28 @@ REFUSED_SUBCOMMANDS = {
 PORTED_WORKLOADS = ("amorphous", "amorphous_protocols")
 
 
-def _add_telemetry_dir_flag(parser: argparse.ArgumentParser, default_desc: str | None) -> None:
-    """``--telemetry-dir`` (its default directory ``default_desc``; None:
-    refused unless '', as serve's) and ``--runs-root`` (refused)."""
-    help_dir = (f"Not ported for serve: refused unless '' ({SERVE_EVENTS})."
-                if default_desc is None else
-                f"Directory of the run's event stream, events.jsonl (default: {default_desc}; "
-                "'' writes none).")
+def _add_telemetry_dir_flag(parser: argparse.ArgumentParser, default_desc: str) -> None:
+    """``--telemetry-dir`` (its default directory ``default_desc``) and
+    ``--runs-root``."""
     parser.add_argument("--telemetry-dir", "--telemetry_dir", dest="telemetry_dir", type=str,
-                        default=None, help=help_dir)
+                        default=None,
+                        help=f"Directory of the run's event stream, events.jsonl (default: "
+                             f"{default_desc}; '' writes none).")
     parser.add_argument("--runs-root", "--runs_root", dest="runs_root", type=str, default="",
-                        help=f"Not ported: refused when set ({RUNS_REGISTRY}).")
+                        help="Register the run in this run registry (index.jsonl) at its end "
+                             "(default: DIB_RUNS_ROOT, else none).")
+
+
+def _register_run_dir(args, run_dir: str) -> None:
+    """Run-registry registration at the run's end: ``--runs-root``, else
+    ``DIB_RUNS_ROOT``, else off. A failed registration warns and never
+    fails the run it records (``register_run``)."""
+    root = getattr(args, "runs_root", "") or os.environ.get("DIB_RUNS_ROOT")
+    if not root:
+        return
+    from dib_tpu_torch.telemetry.registry import register_run
+
+    register_run(run_dir, root=root)
 
 
 def _add_model_flags(parser: argparse.ArgumentParser) -> None:
@@ -155,9 +166,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("command", nargs="?", default="train",
                         choices=["train", "workload", "telemetry", "serve", "lint", "sched",
                                  "stream", "ckpt", "study"],
-                        help="'train' (flags below) or 'workload' (amorphous, "
-                             "amorphous_protocols; see `dib_tpu_torch workload --help`). "
-                             "The others are not ported and are refused.")
+                        help="'train' (flags below), 'workload' (amorphous, "
+                             "amorphous_protocols; see `dib_tpu_torch workload --help`), "
+                             "'serve' or 'telemetry'. The others are not ported and are "
+                             "refused.")
     _add_model_flags(parser)
     parser.add_argument("--artifact_outdir", type=str, default="./training_artifacts/")
     parser.add_argument("--learning_rate", type=float, default=3e-4)
@@ -218,12 +230,11 @@ def refusal(args, defaults: dict) -> str | None:
     for dest, item in REFUSED_FLAGS.items():
         value = getattr(args, dest)
         if value != defaults[dest] and value not in ACCEPTED_VALUES.get(dest, ()):
-            flag = "--" + (dest.replace("_", "-") if dest == "runs_root" else dest)
-            return f"{flag} {value!r} is not ported ({item})"
+            return f"--{dest} {value!r} is not ported ({item})"
     if args.command in REFUSED_SUBCOMMANDS:
         return (f"the {args.command!r} subcommand is not ported "
                 f"({REFUSED_SUBCOMMANDS[args.command]})")
-    if args.command in ("workload", "serve"):
+    if args.command in ("workload", "serve", "telemetry"):
         return (f"the {args.command!r} subcommand must come first: "
                 f"python -m dib_tpu_torch {args.command} ...")
     return _model_refusal(args)
@@ -485,6 +496,8 @@ def run(args, device=None) -> dict:
             telemetry.run_end(status="preempted", epoch=exc.epoch)
             telemetry.close()
             summary["events_path"] = telemetry.path
+            # the registry's status column tells preempted runs from clean ones
+            _register_run_dir(args, os.path.dirname(telemetry.path))
         _write_summary(outdir, summary)
         return summary
 
@@ -514,6 +527,7 @@ def run(args, device=None) -> dict:
                           resumed_from_epoch=summary.get("resumed_from_epoch"))
         telemetry.close()
         summary["events_path"] = telemetry.path
+        _register_run_dir(args, os.path.dirname(telemetry.path))
     _write_summary(outdir, summary)
     if render:
         from dib_tpu_torch.viz import save_distributed_info_plane
@@ -680,8 +694,6 @@ def workload_main(argv: Sequence[str], device=None) -> int:
     args = parser.parse_args(argv)
     if args.name not in PORTED_WORKLOADS:
         parser.error(f"workload {args.name!r} is not ported ({WORKLOADS})")
-    if args.runs_root:
-        parser.error(f"--runs-root {args.runs_root!r} is not ported ({RUNS_REGISTRY})")
     overrides = _parse_sets(args.set)
 
     from dib_tpu_torch import workloads as wl
@@ -719,6 +731,7 @@ def workload_main(argv: Sequence[str], device=None) -> int:
     if telemetry is not None:
         telemetry.run_end(status="ok")
         telemetry.close()
+        _register_run_dir(args, os.path.dirname(telemetry.path))
     print(json.dumps(_json_safe(result)))
     return 0
 
@@ -810,9 +823,9 @@ def serve_parser() -> argparse.ArgumentParser:
                         help="Auto-shutdown after this many seconds (0 = run until "
                              "SIGINT/SIGTERM).")
     parser.add_argument("--outdir", type=str, default="./serve_artifacts/",
-                        help="Run directory (created and named in the hello line; serving "
-                             f"writes no event stream yet, {SERVE_EVENTS}).")
-    _add_telemetry_dir_flag(parser, None)
+                        help="Run directory for the serving event stream (created and named "
+                             "in the hello line).")
+    _add_telemetry_dir_flag(parser, "--outdir")
     return parser
 
 
@@ -820,10 +833,6 @@ def serve_refusal(args) -> str | None:
     """The one-line reason the port refuses these serve flags, or None."""
     if args.exec_cache > 0:
         return f"--exec_cache {args.exec_cache} is not ported ({SERVE_GRAPHS})"
-    if args.telemetry_dir not in (None, ""):
-        return f"--telemetry-dir {args.telemetry_dir!r} is not ported ({SERVE_EVENTS})"
-    if args.runs_root:
-        return f"--runs-root {args.runs_root!r} is not ported ({RUNS_REGISTRY})"
     return _model_refusal(args)
 
 
@@ -860,7 +869,10 @@ def serve_main(argv: Sequence[str], device=None) -> int:
     args = serve_parser().parse_args(argv)
     if args.prefork > 0:
         from dib_tpu_torch.serve.prefork import supervise_prefork
+        from dib_tpu_torch.telemetry.context import ensure_context
 
+        # every worker's event stream carries the fleet's one trace_id
+        ensure_context("serve").activate()
         return supervise_prefork(argv, prefork=args.prefork, host=args.host, port=args.port,
                                  outdir=args.outdir, serve_seconds=args.serve_seconds,
                                  command=(*_entry_command(device), "serve"))
@@ -880,7 +892,13 @@ def serve_main(argv: Sequence[str], device=None) -> int:
         pool_router,
     )
     from dib_tpu_torch.serve.replicas import local_devices
-    from dib_tpu_torch.telemetry import MetricsRegistry
+    from dib_tpu_torch.telemetry import (
+        MetricsRegistry,
+        Tracer,
+        open_writer,
+        runtime_manifest,
+        shared_run_id,
+    )
     from dib_tpu_torch.train import DIBTrainer
     from dib_tpu_torch.train.checkpoint import DIBCheckpointer
 
@@ -889,10 +907,28 @@ def serve_main(argv: Sequence[str], device=None) -> int:
     config = _serve_config(args)
     buckets = list(args.buckets or DEFAULT_BUCKETS)
     os.makedirs(args.outdir, exist_ok=True)
+    # the event stream: into --outdir unless --telemetry-dir says otherwise
+    telemetry = open_writer(args.telemetry_dir, args.outdir, run_id=shared_run_id())
     registry = MetricsRegistry()
-    zoo = ModelZoo(response_capacity=args.response_cache or None, registry=registry)
+    # no stream, no spans: a serve without one keeps no span timings either
+    tracer = Tracer(telemetry) if telemetry is not None else None
+    if telemetry is not None:
+        telemetry.run_start(runtime_manifest(config=config, extra={
+            "mode": "serve", "dataset": args.dataset,
+            "checkpoint_dir": os.path.abspath(args.checkpoint_dir),
+            "buckets": [int(b) for b in buckets],
+            "max_batch": args.max_batch, "max_wait_ms": args.max_wait_ms,
+            "sweep": bool(args.sweep_beta_ends), "workers": args.workers,
+            "quota_rps": args.quota_rps,
+            "admission_limit": args.admission_limit,
+            "response_cache": args.response_cache,
+            "exec_cache": args.exec_cache,   # always 0: the port has no executable cache
+        }))
+    zoo = ModelZoo(response_capacity=args.response_cache or None, telemetry=telemetry,
+                   registry=registry)
     router_kwargs = dict(
-        batch_buckets=buckets, registry=registry, max_batch=args.max_batch,
+        batch_buckets=buckets, telemetry=telemetry, registry=registry, tracer=tracer,
+        max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
         eject_after=args.eject_after, probe_after_s=args.probe_after_s,
         probe_timeout_s=args.probe_timeout_s,
@@ -921,7 +957,8 @@ def serve_main(argv: Sequence[str], device=None) -> int:
                                     checkpoint_dir=args.checkpoint_dir, **router_kwargs)
 
     quotas = TenantQuotas(args.quota_rps, args.quota_burst) if args.quota_rps > 0 else None
-    server = DIBServer(zoo, host=args.host, port=args.port, registry=registry, quotas=quotas,
+    server = DIBServer(zoo, host=args.host, port=args.port, telemetry=telemetry,
+                       registry=registry, tracer=tracer, quotas=quotas,
                        admission_limit=args.admission_limit or None,
                        reuse_port=args.reuse_port)
     stop = threading.Event()
@@ -942,6 +979,9 @@ def serve_main(argv: Sequence[str], device=None) -> int:
         server.close()
         for signum, handler in handlers.items():
             signal.signal(signum, handler)
+    if telemetry is not None:
+        # after close(): the stream now ends with its metrics rollup and run_end
+        _register_run_dir(args, os.path.dirname(telemetry.path))
     counters = registry.snapshot()["counters"]
     print(json.dumps({
         "served_requests": counters.get("serve.requests.ok", 0),
@@ -954,10 +994,21 @@ def main(argv: Sequence[str] | None = None, device=None) -> int:
     """``python -m dib_tpu_torch``; ``device`` (a Python argument, not a
     flag) is where training or serving runs, ``None`` meaning the GPU."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] == "workload":
-        return workload_main(argv[1:], device)
-    if argv and argv[0] == "serve":
-        return serve_main(argv[1:], device)
+    if argv and argv[0] in ("workload", "serve"):
+        entry = workload_main if argv[0] == "workload" else serve_main
+        try:
+            return entry(argv[1:], device)
+        except Exception as exc:
+            # a crashed run's stream ends with run_end(status="error")
+            from dib_tpu_torch.telemetry import finalize_crashed
+
+            finalize_crashed(exc, log=lambda msg: print(msg, file=sys.stderr))
+            raise
+    if argv and argv[0] == "telemetry":
+        # file analysis on the host: no device, no torch
+        from dib_tpu_torch.telemetry.summary import telemetry_main
+
+        return telemetry_main(argv[1:])
     if argv and argv[0] in REFUSED_SUBCOMMANDS:
         print(f"dib_tpu_torch: the {argv[0]!r} subcommand is not ported "
               f"({REFUSED_SUBCOMMANDS[argv[0]]})", file=sys.stderr)
@@ -1013,6 +1064,9 @@ def _watchdog_main(args, argv: Sequence[str], device=None) -> int:
     finally:
         if telemetry is not None:
             telemetry.close()
+    if telemetry is not None:
+        # supersedes the worker's own registration with the supervised view
+        _register_run_dir(args, os.path.dirname(telemetry.path))
     print(json.dumps({"watchdog": result}))
     return 0 if result["returncode"] == 0 else 1
 

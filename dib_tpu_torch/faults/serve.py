@@ -6,9 +6,10 @@ and makes its dispatches fail or crawl on schedule — the deterministic
 stand-in for a sick device behind one serving replica. The router's health
 tracking (``serve/replicas.py``) must eject it after consecutive failures,
 keep client calls flowing through the healthy replicas, and re-admit it
-via probe once it heals. The JAX package also writes a ``fault`` event per
-injection; the port's serving stack writes no event stream yet (ROADMAP.md
-queue 1, item 3).
+via probe once it heals. With ``telemetry=`` every injection lands as a
+``fault`` event (``replica_error`` or ``replica_slow``, tagged with the
+``replica`` index), on the same stream as the ``mitigation`` events it
+provokes.
 
 ``kill_batcher_worker`` crashes a micro-batcher's dispatch thread the way
 a real bug would (an exception escaping the drain loop) — the fault the
@@ -38,8 +39,11 @@ class FlakyEngine:
     drops into any ``ReplicaEntry`` unchanged.
     """
 
-    def __init__(self, engine, fail_next: int = 0, delay_s: float = 0.0):
+    def __init__(self, engine, fail_next: int = 0, delay_s: float = 0.0,
+                 telemetry=None, replica: int | None = None):
         self._engine = engine
+        self._telemetry = telemetry
+        self._replica = replica
         self._lock = threading.Lock()
         self.fail_next = int(fail_next)
         self.delay_s = float(delay_s)
@@ -58,6 +62,12 @@ class FlakyEngine:
                 self.fail_next -= 1
             if fail or delay > 0:
                 self.injected += 1
+                if self._telemetry is not None:
+                    self._telemetry.fault(
+                        kind="replica_error" if fail else "replica_slow",
+                        op=op, replica=self._replica,
+                        **({"delay_s": delay} if delay > 0 else {}),
+                    )
         if delay > 0:
             time.sleep(delay)
         if fail:
@@ -96,11 +106,14 @@ class _WorkerBomb:
         pass
 
 
-def kill_batcher_worker(batcher, timeout_s: float = 10.0) -> bool:
+def kill_batcher_worker(batcher, telemetry=None, timeout_s: float = 10.0) -> bool:
     """Deterministically crash ``batcher``'s dispatch thread.
 
-    Returns True when the thread died within ``timeout_s``.
+    Returns True when the thread died within ``timeout_s``. Emits a
+    ``fault`` event (kind ``batcher_crash``) so the drill is auditable.
     """
+    if telemetry is not None:
+        telemetry.fault(kind="batcher_crash")
     batcher._queue.put(_WorkerBomb())
     batcher._worker.join(timeout_s)
     return not batcher._worker.is_alive()

@@ -30,9 +30,13 @@ worker stamps ``collected`` (dequeued into a micro-batch) and
 ``dispatch_start`` (the engine call began) on each request, on the process-
 wide ``perf_counter`` clock the server's phase clock reads. Queue depth,
 batch rows and fill, the per-status request counters and the batcher-side
-request latency land in an optional ``MetricsRegistry``. The JAX package's
-span events go to an event stream the port does not have yet (ROADMAP.md
-queue 1, item 3), so ``tracer`` accepts only ``None``.
+request latency land in an optional ``MetricsRegistry``.
+
+Telemetry: each dispatched micro-batch lands as a ``batch`` span (op, rows,
+requests, bucket, fill) and each request the server does not span itself as
+a ``request`` span (op, status, rows, tenant) through an optional
+``telemetry.Tracer``. A batch is timed on the host clock around the engine
+call, which returns only once the result is back on the host.
 """
 
 from __future__ import annotations
@@ -191,8 +195,8 @@ class MicroBatcher:
         batch-mates before dispatching whatever is there.
       max_queue: bound on queued requests; beyond it ``submit`` raises
         :class:`QueueFullError`.
-      tracer: span sink of the JAX package; the event stream is not ported
-        yet, so only ``None`` is accepted.
+      tracer: optional ``telemetry.Tracer`` for ``batch``/``request`` span
+        events.
       registry: optional ``MetricsRegistry`` for queue/latency metrics.
     """
 
@@ -207,14 +211,11 @@ class MicroBatcher:
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        if tracer is not None:
-            raise NotImplementedError(
-                "batcher span events need the event stream, which is not ported "
-                "(ROADMAP.md queue 1, item 3)")
         self.engine = engine
         self.max_batch = min(int(max_batch), int(engine.max_bucket))
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.registry = registry
+        self.tracer = tracer
         self._queue: "queue.Queue[_Request]" = queue.Queue(maxsize=max_queue)
         self._closed = False
         # Guards the closed-check + enqueue as one step against close():
@@ -233,8 +234,7 @@ class MicroBatcher:
                server_span: bool = False) -> _Request:
         """Enqueue one request; returns its future. Validation is eager —
         a malformed request never reaches a batch. ``tenant`` is an
-        optional label carried on the request (the JAX package puts it on
-        the request's span event).
+        optional label carried onto the request's span event.
         ``server_span=True`` hands request-span ownership to the caller
         (the asyncio server's phase clock) — must be set HERE, at
         construction, because a fast dispatch can ``_finish`` before
@@ -426,6 +426,7 @@ class MicroBatcher:
             request.dispatch_start = group_t0
         rows = np.concatenate([r.rows for r in requests])
         n = rows.shape[0]
+        t0 = time.perf_counter()
         try:
             out = getattr(self.engine, op)(rows)
         except Exception:
@@ -441,6 +442,7 @@ class MicroBatcher:
                     self._finish(request, "error", time.perf_counter())
             return
         done = time.perf_counter()
+        seconds = done - t0
         offset = 0
         for request in requests:
             k = request.rows.shape[0]
@@ -450,13 +452,27 @@ class MicroBatcher:
             )
             offset += k
             self._finish(request, "ok", done)
+        if self.tracer is None and self.registry is None:
+            return
+        fill = n / self._capacity(n)
+        if self.tracer is not None:
+            bucket = (self.engine.bucket_for(n)
+                      if n <= self.engine.max_bucket else self.engine.max_bucket)
+            self.tracer.add("batch", seconds, op=op, rows=n, requests=len(requests),
+                            bucket=bucket, fill=round(fill, 4))
         if self.registry is not None:
             self.registry.counter("serve.batches").inc()
             self.registry.histogram("serve.batch_rows").record(n)
-            self.registry.histogram("serve.batch_fill").record(n / self._capacity(n))
+            self.registry.histogram("serve.batch_fill").record(fill)
 
     def _finish(self, request: _Request, status: str, now: float) -> None:
         latency = now - request.submitted
+        if self.tracer is not None and not request.server_span:
+            tags = {}
+            if request.tenant is not None:
+                tags["tenant"] = request.tenant
+            self.tracer.add("request", latency, op=request.op, status=status,
+                            rows=int(request.rows.shape[0]), **tags)
         if self.registry is not None:
             self.registry.counter(f"serve.requests.{status}").inc()
             if not request.server_span:

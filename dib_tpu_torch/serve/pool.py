@@ -291,7 +291,7 @@ class WorkerReplica:
 def pool_router(model, num_workers: int,
                 batch_buckets=(1, 8, 32, 128),
                 beta_end: float | None = None,
-                registry=None, tracer=None,
+                telemetry=None, registry=None, tracer=None,
                 eject_after: int = 3, probe_after_s: float = 5.0,
                 probe_timeout_s: float = 5.0,
                 device=None,
@@ -304,7 +304,9 @@ def pool_router(model, num_workers: int,
     ``WorkerDiedError``. The standard health machinery rides on top:
     ejection after ``eject_after`` consecutive failures, per-request retry
     on surviving replicas in the server, probe-driven respawn and
-    re-admission.
+    re-admission. The PARENT writes the events: ``tracer`` receives the
+    batchers' spans and ``telemetry`` the router's ``mitigation`` events; a
+    worker subprocess writes none.
     """
     from dib_tpu_torch.serve.batcher import MicroBatcher
     from dib_tpu_torch.serve.replicas import ReplicaEntry, ReplicaRouter
@@ -329,4 +331,4 @@ def pool_router(model, num_workers: int,
     return ReplicaRouter(entries, eject_after=eject_after,
                          probe_after_s=probe_after_s,
                          probe_timeout_s=probe_timeout_s,
-                         registry=registry)
+                         telemetry=telemetry, registry=registry)

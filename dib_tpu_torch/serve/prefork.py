@@ -15,7 +15,12 @@ aggregate their hello lines into one machine-readable line, respawn workers
 that die unexpectedly (a budgeted, logged loop: a crashed worker's
 in-flight connections reset, new connections route to the survivors,
 capacity heals on respawn), and forward SIGTERM for a graceful fleet
-shutdown. Each worker gets its own ``--outdir`` (``<outdir>/worker<K>``).
+shutdown. Each worker gets its own ``--outdir`` (``<outdir>/worker<K>``),
+and so its own event stream (``<outdir>/worker<K>/events.jsonl``):
+interleaving processes onto one events.jsonl would collide their seq
+chains. The caller pins the fleet's trace context in the environment
+(``ensure_context("serve").activate()``), so every worker's stream carries
+one ``trace_id``.
 """
 
 from __future__ import annotations

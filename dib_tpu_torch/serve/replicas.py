@@ -19,9 +19,10 @@ one sick device stops failing client calls), and a background probe
 re-dispatches a tiny request against the ejected engine every
 ``probe_after_s``; the first success re-admits it, and the same loop revives
 a batcher whose worker thread died. Transitions count in the registry
-(``serve.replicas.ejected``/``readmitted``, ``serve.batchers.restarted``);
-the JAX package's ``mitigation`` events wait for the event stream (ROADMAP.md
-queue 1, item 3). ``/healthz`` reports the full per-replica picture
+(``serve.replicas.ejected``/``readmitted``, ``serve.batchers.restarted``)
+and land as ``mitigation`` events (``replica_ejected``,
+``replica_readmitted``, ``batcher_restarted``) on the serving run's event
+stream. ``/healthz`` reports the full per-replica picture
 (``router.health()``).
 """
 
@@ -116,7 +117,8 @@ class ReplicaRouter:
 
     def __init__(self, entries: Sequence[ReplicaEntry],
                  eject_after: int = 3, probe_after_s: float = 5.0,
-                 probe_timeout_s: float = 5.0, registry=None):
+                 probe_timeout_s: float = 5.0,
+                 telemetry=None, registry=None):
         if not entries:
             raise ValueError("router needs at least one replica entry")
         if eject_after < 1:
@@ -125,6 +127,7 @@ class ReplicaRouter:
         self.eject_after = int(eject_after)
         self.probe_after_s = float(probe_after_s)
         self.probe_timeout_s = float(probe_timeout_s)
+        self.telemetry = telemetry
         self.registry = registry
         self._rr = 0
         self._lock = threading.Lock()          # round-robin cursor
@@ -211,6 +214,12 @@ class ReplicaRouter:
         if should_eject:
             if self.registry is not None:
                 self.registry.counter("serve.replicas.ejected").inc()
+            if self.telemetry is not None:
+                self.telemetry.mitigation(
+                    mtype="replica_ejected", replica=entry.index,
+                    consecutive_failures=entry.consecutive_failures,
+                    error=entry.last_error,
+                )
             self._ensure_probe_thread()
 
     def report_success(self, entry: ReplicaEntry) -> None:
@@ -225,6 +234,8 @@ class ReplicaRouter:
         if readmitted:
             if self.registry is not None:
                 self.registry.counter("serve.replicas.readmitted").inc()
+            if self.telemetry is not None:
+                self.telemetry.mitigation(mtype="replica_readmitted", replica=entry.index)
 
     def probe_ejected(self, force: bool = False) -> int:
         """One health-maintenance tick: revive dead batcher workers, then
@@ -240,6 +251,8 @@ class ReplicaRouter:
             if entry.batcher.revive():
                 if self.registry is not None:
                     self.registry.counter("serve.batchers.restarted").inc()
+                if self.telemetry is not None:
+                    self.telemetry.mitigation(mtype="batcher_restarted", replica=entry.index)
         for entry in self.entries:
             with self._health_lock:
                 due = entry.ejected and not entry.probe_inflight and (
@@ -356,6 +369,7 @@ class ReplicaRouter:
         params: dict | None = None,
         devices=None,
         batch_buckets: Sequence[int] = DEFAULT_BUCKETS,
+        telemetry=None,
         registry=None,
         tracer=None,
         eject_after: int = 3,
@@ -365,7 +379,10 @@ class ReplicaRouter:
     ) -> "ReplicaRouter":
         """One engine+batcher per device (default: every CUDA device, see
         :func:`local_devices`), each over its own copy of ``model`` loaded
-        with ``params`` (a state dict; ``None`` keeps the model's weights)."""
+        with ``params`` (a state dict; ``None`` keeps the model's weights).
+        ``telemetry`` receives the router's ``mitigation`` events and
+        ``tracer`` the batchers' spans; the engines write no ``compile``
+        event, since they compile nothing."""
         devices = list(devices) if devices is not None else local_devices()
         entries = []
         for i, device in enumerate(devices):
@@ -380,7 +397,8 @@ class ReplicaRouter:
             entries.append(ReplicaEntry(engine, batcher, i, device=engine.device))
         return cls(entries, eject_after=eject_after,
                    probe_after_s=probe_after_s,
-                   probe_timeout_s=probe_timeout_s, registry=registry)
+                   probe_timeout_s=probe_timeout_s,
+                   telemetry=telemetry, registry=registry)
 
     @classmethod
     def from_sweep(
@@ -388,6 +406,7 @@ class ReplicaRouter:
         sweep,
         states,
         batch_buckets: Sequence[int] = DEFAULT_BUCKETS,
+        telemetry=None,
         registry=None,
         tracer=None,
         eject_after: int = 3,
@@ -414,4 +433,5 @@ class ReplicaRouter:
             )
         return cls(entries, eject_after=eject_after,
                    probe_after_s=probe_after_s,
-                   probe_timeout_s=probe_timeout_s, registry=registry)
+                   probe_timeout_s=probe_timeout_s,
+                   telemetry=telemetry, registry=registry)

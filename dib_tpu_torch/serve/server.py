@@ -55,9 +55,17 @@ server records each phase in ``serve.phase.<name>`` and the end-to-end time
 in ``serve.request_latency_s`` (fleet-mergeable bucket counts on
 ``/metrics``; see ``python -m dib_tpu_torch serve top``).
 
-The JAX package's run bracket and request spans go to an event stream the
-port does not have yet (ROADMAP.md queue 1, item 3): ``telemetry`` and
-``tracer`` accept only ``None``.
+Telemetry: the server owns the run bracket's end (the CLI writes the
+``run_start`` manifest with ``mode: "serve"``; ``close()`` writes the final
+``metrics`` rollup and then ``run_end``), so a serving run directory
+summarizes and renders with ``python -m dib_tpu_torch telemetry
+summarize|report`` like a training run. Each request through the op routes
+lands as ONE ``request`` span, written by the server after the socket write,
+with a ``phases`` field whose values telescope to the span's ``seconds``;
+the batcher suppresses its own span for these (``server_span=True``).
+``batch`` spans are the batcher's: one per padded engine dispatch. Health
+transitions land as one ``mitigation`` event per edge
+(``serving_unhealthy``/``serving_recovered``).
 """
 
 from __future__ import annotations
@@ -90,13 +98,13 @@ class _PhaseClock:
     ``stamps`` is ``[(phase_name, perf_counter), ...]`` starting at the
     request line's arrival; phases are the diffs of consecutive stamps,
     each named by its LATER stamp (``phases()``), so they telescope to
-    exactly last-minus-first — the request's seconds — by construction.
+    exactly last-minus-first — the span's ``seconds`` — by construction.
     Repeated names accumulate (a replica retry re-traverses
     queue/batch/dispatch and each traversal adds to its phase).
 
-    ``meta`` is the request's record (status/op/rows/tenant/cached) or
-    None — None means this request records nothing (400/404, queue-full
-    and no-replica 503s), as in the JAX package, where it emits no span.
+    ``meta`` is the span payload (status/op/rows/tenant/cached) or None —
+    None means this request writes NO span and records nothing (400/404,
+    queue-full and no-replica 503s).
     """
 
     __slots__ = ("stamps", "meta")
@@ -209,18 +217,20 @@ class TenantQuotas:
 
 
 class DIBServer:
-    """Owns the asyncio HTTP listener and the model zoo.
+    """Owns the asyncio HTTP listener, the model zoo and the end of the
+    run's telemetry bracket.
 
     ``router`` may be a ``ReplicaRouter`` (wrapped as a single-model zoo)
     or a :class:`~dib_tpu_torch.serve.zoo.ModelZoo`. ``port=0`` binds an
     ephemeral port; the bound port is ``self.port``. ``start()`` runs the
     event loop in a daemon thread; ``close()`` stops the loop, drains the
-    batchers and releases the socket — safe to call twice (signal handler
-    + finally). ``reuse_port=True`` binds with ``SO_REUSEPORT``, the prefork
-    request plane (``serve/prefork.py``): sibling server processes listen
-    on one port and the kernel balances connections across them.
-    ``telemetry`` and ``tracer`` (the JAX package's event stream) accept
-    only ``None``.
+    batchers, writes the final metrics rollup + ``run_end`` and releases
+    the socket — safe to call twice (signal handler + finally).
+    ``reuse_port=True`` binds with ``SO_REUSEPORT``, the prefork request
+    plane (``serve/prefork.py``): sibling server processes listen on one
+    port and the kernel balances connections across them.
+    ``telemetry`` is the run's ``EventWriter``; with it and no ``tracer``
+    the server makes a ``Tracer`` of its own for the request spans.
     """
 
     def __init__(self, router, host: str = "127.0.0.1", port: int = 0,
@@ -228,19 +238,27 @@ class DIBServer:
                  quotas: TenantQuotas | None = None,
                  admission_limit: int | None = None,
                  reuse_port: bool = False):
-        if telemetry is not None or tracer is not None:
-            raise NotImplementedError(
-                "serving telemetry and request spans need the event stream, which is "
-                "not ported (ROADMAP.md queue 1, item 3)")
         self.zoo = (router if isinstance(router, ModelZoo)
-                    else ModelZoo.single(router, registry=registry))
+                    else ModelZoo.single(router, telemetry=telemetry,
+                                         registry=registry))
+        self.telemetry = telemetry
         self.registry = registry
+        if tracer is None and telemetry is not None:
+            # the server owns the request span (it has the whole read ->
+            # write anatomy; the batcher suppresses its own), so it must be
+            # able to write it when the caller wired no tracer
+            from dib_tpu_torch.telemetry.trace import Tracer
+
+            tracer = Tracer(telemetry)
+        self.tracer = tracer
         self.quotas = quotas
         self.admission_limit = (int(admission_limit)
                                 if admission_limit else None)
         self._inflight = 0                      # loop-thread only
         self._closed = threading.Lock()
         self._done = False
+        self._health_lock = threading.Lock()
+        self._was_serviceable = True   # /healthz transition edge detector
         # Bind synchronously so self.port exists before start() — callers
         # (CLI, tests) read it right after construction.
         self._sock = socket.create_server((host, port), backlog=512,
@@ -334,6 +352,13 @@ class DIBServer:
             # start() was never called: release the bound socket directly
             self._sock.close()
         self.zoo.close()
+        if self.telemetry is not None:
+            if self.registry is not None:
+                from dib_tpu_torch.telemetry.metrics import write_metrics
+
+                write_metrics(self.registry, self.telemetry)
+            self.telemetry.run_end(status="ok")
+            self.telemetry.close()
 
     # ------------------------------------------------------ HTTP plumbing
     async def _handle_conn(self, reader: asyncio.StreamReader,
@@ -544,6 +569,7 @@ class DIBServer:
             # derived from the SAME snapshot as the payload rows (a second
             # router scan could disagree under a concurrent transition)
             serviceable = health["serviceable"]
+            self._note_health_transition(serviceable, health)
             payload = {
                 # the serving surface stays present even when degraded: a
                 # load generator shaping traffic needs it either way
@@ -595,6 +621,40 @@ class DIBServer:
         return ("no replica can carry a request: "
                 + "; ".join(parts or ["unknown cause"]))
 
+    def _note_health_transition(self, serviceable: bool, health: dict) -> None:
+        """One mitigation event per health EDGE (not per poll): a drill's
+        detection of a dead batcher or a total ejection lands on the same
+        stream as the fault that caused it."""
+        with self._health_lock:
+            changed = serviceable != self._was_serviceable
+            self._was_serviceable = serviceable
+        if changed and self.telemetry is not None:
+            if serviceable:
+                self.telemetry.mitigation(mtype="serving_recovered",
+                                          healthy=health["healthy"])
+            else:
+                self.telemetry.mitigation(
+                    mtype="serving_unhealthy",
+                    detail=self._unhealthy_detail(health),
+                    ejected=health["ejected"],
+                    batchers_dead=health["batchers_dead"],
+                )
+
+    # -------------------------------------------------------------- serving
+    def _span(self, status: str, op: str, rows: int, seconds: float,
+              tenant: str | None, cached: bool = False) -> None:
+        """A server-side ``request`` span for a request the batcher never
+        saw (quota or shed rejections, cache hits) and no phase clock
+        carries: seconds = submit -> completion."""
+        if self.tracer is None:
+            return
+        tags: dict = {}
+        if tenant is not None:
+            tags["tenant"] = tenant
+        if cached:
+            tags["cached"] = True
+        self.tracer.add("request", seconds, op=op, status=status, rows=rows, **tags)
+
     def handle_post(self, path: str, body: dict,
                     tenant: str | None = None) -> tuple[int, dict]:
         """Synchronous facade over :meth:`handle_post_async` (drills and
@@ -611,9 +671,11 @@ class DIBServer:
         return status, payload
 
     def _finalize_request(self, clock: _PhaseClock) -> None:
-        """Record the per-phase and end-to-end histograms — called by the
+        """Write the end-to-end request span (with its ``phases``) and
+        record the per-phase and end-to-end histograms — called by the
         connection loop AFTER the socket write, so every phase including
-        ``write`` is counted. ``meta is None`` records nothing."""
+        ``write`` is on the span. ``meta is None`` (400/404, queue-full and
+        no-replica 503s) writes and records nothing."""
         meta = clock.meta
         if meta is None:
             return
@@ -628,6 +690,16 @@ class DIBServer:
                     "serve.request_latency_s").record(seconds)
             for name, dt in phases.items():
                 self.registry.histogram(f"serve.phase.{name}").record(dt)
+        if self.tracer is not None:
+            tags: dict = {}
+            if meta.get("tenant") is not None:
+                tags["tenant"] = meta["tenant"]
+            if meta.get("cached"):
+                tags["cached"] = True
+            self.tracer.add(
+                "request", seconds, op=meta["op"], status=meta["status"],
+                rows=int(meta["rows"]),
+                phases={k: round(v, 9) for k, v in phases.items()}, **tags)
 
     async def handle_post_async(
             self, path: str, body: dict,
@@ -647,6 +719,7 @@ class DIBServer:
         except (TypeError, ValueError):
             return 400, {"error": '"timeout_s" must be a number'}, {}
         tenant = tenant if tenant is not None else "anonymous"
+        t0 = time.monotonic()
 
         # ---- admission: per-tenant quota, then global in-flight bound.
         # Both fire BEFORE any queueing — a rejected request must cost the
@@ -660,6 +733,8 @@ class DIBServer:
                     clock.stamp("admission")
                     clock.meta = {"status": "quota", "op": op, "rows": 0,
                                   "tenant": tenant}
+                else:
+                    self._span("quota", op, 0, time.monotonic() - t0, tenant)
                 return 429, {
                     "error": f"tenant {tenant!r} is over its request "
                              "quota; retry after the indicated backoff",
@@ -674,6 +749,8 @@ class DIBServer:
                 clock.stamp("admission")
                 clock.meta = {"status": "shed", "op": op, "rows": 0,
                               "tenant": tenant}
+            else:
+                self._span("shed", op, 0, time.monotonic() - t0, tenant)
             return 503, {
                 "error": f"admission limit ({self.admission_limit} "
                          "in-flight requests) reached; retry with backoff",
@@ -709,6 +786,9 @@ class DIBServer:
                     clock.stamp("dispatch")
                     clock.meta = {"status": "ok", "op": op, "rows": n,
                                   "tenant": tenant, "cached": True}
+                else:
+                    self._span("ok", op, n, time.monotonic() - t0, tenant,
+                               cached=True)
                 return 200, payload, {}
 
         self._inflight += 1

@@ -114,10 +114,13 @@ class ModelZoo:
 
     ``response_capacity`` > 0 arms the :class:`ResponseCache` the server
     consults before admission. The first registered model is the default a
-    body without ``"model"`` resolves to.
+    body without ``"model"`` resolves to. ``telemetry`` receives a
+    ``mitigation`` event (``zoo_reloaded``) per reload.
     """
 
-    def __init__(self, response_capacity: int | None = None, registry=None):
+    def __init__(self, response_capacity: int | None = None,
+                 telemetry=None, registry=None):
+        self.telemetry = telemetry
         self.registry = registry
         self.response_cache = (
             ResponseCache(response_capacity, registry=registry)
@@ -157,6 +160,8 @@ class ModelZoo:
             self.response_cache.invalidate(name)
         if self.registry is not None:
             self.registry.counter("serve.zoo.reloads").inc()
+        if self.telemetry is not None:
+            self.telemetry.mitigation(mtype="zoo_reloaded", model=name)
         old_router.close()
 
     # ---------------------------------------------------------- builders
@@ -264,9 +269,10 @@ class ModelZoo:
     @classmethod
     def single(cls, router, name: str = "default",
                response_capacity: int | None = None,
-               registry=None) -> "ModelZoo":
+               telemetry=None, registry=None) -> "ModelZoo":
         """Wrap one pre-built router as a single-model zoo — the shim the
         server uses so every deployment routes through the same code."""
-        zoo = cls(response_capacity=response_capacity, registry=registry)
+        zoo = cls(response_capacity=response_capacity,
+                  telemetry=telemetry, registry=registry)
         zoo.register(name, router)
         return zoo

@@ -68,7 +68,7 @@ def test_parser_keeps_every_jax_flag_and_default():
         assert port[action.dest].default == action.default, action.dest
         assert port[action.dest].option_strings == action.option_strings, action.dest
     assert set(cli.REFUSED_FLAGS) <= {a.dest for a in jax_actions}
-    assert set(cli.REFUSED_SUBCOMMANDS) | {"train", "workload", "serve"} == set(
+    assert set(cli.REFUSED_SUBCOMMANDS) | {"train", "workload", "serve", "telemetry"} == set(
         next(a for a in jax_actions if a.dest == "command").choices)
     args = cli.build_parser().parse_args([])
     want = jax_cli.build_parser().parse_args([])
@@ -78,12 +78,10 @@ def test_parser_keeps_every_jax_flag_and_default():
 
 @pytest.mark.parametrize("argv,env", [
     (["--mesh_data", "2"], {}),
-    (["--runs_root", "runs"], {}),
     (["--dataset", "double_pendulum"], {}),
     (["--mesh_beta", "2"], {}),
     (["--engine", "shard_map"], {}),
     (["--dataset", "amorphous_radial_shells"], {}),
-    (["--runs-root", "runs"], {}),
     (["--dataset", "diabetes"], {}),
     (["--infonce_loss", "--sweep_beta_ends", "0.1"], {}),
     (["--dataset", "wine"], {}),
@@ -114,8 +112,9 @@ def test_durability_flags_are_ported(monkeypatch, argv, env):
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "--checkpoint_dir", "x", "--telemetry-dir", "events"], ["lint"],
-    ["ckpt", "scrub", "x"], ["telemetry"],
+    ["lint"], ["ckpt", "scrub", "x"],
+    ["telemetry", "tail", "x"], ["telemetry", "check", "x"],
+    ["telemetry", "fleet", "summarize", "x"],
     ["workload", "boolean"], ["workload", "chaos"],
 ])
 def test_unported_subcommands_are_refused(capsys, argv):
@@ -126,6 +125,62 @@ def test_unported_subcommands_are_refused(capsys, argv):
     assert code == 2
     err = capsys.readouterr().err
     assert "not ported" in err and ROADMAP_ITEM in err
+
+
+@pytest.mark.parametrize("flag", ["--runs_root", "--runs-root", "DIB_RUNS_ROOT"])
+def test_runs_root_registers_the_run(tmp_path, monkeypatch, capsys, flag):
+    """``--runs-root`` (either spelling) or ``DIB_RUNS_ROOT`` registers the
+    run at its end, and ``telemetry runs list`` lists it."""
+    root = str(tmp_path / "runs")
+    if flag == "DIB_RUNS_ROOT":
+        monkeypatch.setenv(flag, root)
+        extra = []
+    else:
+        monkeypatch.delenv("DIB_RUNS_ROOT", raising=False)
+        extra = [flag, root]
+    assert cli.main(_argv(tmp_path / "run", *extra), device="cpu") == 0
+    [entry] = [json.loads(line) for line in open(os.path.join(root, "index.jsonl"))]
+    assert entry["kind"] == "run" and entry["status"] == "ok"
+    assert entry["run_dir"] == str(tmp_path / "run") and entry["metrics"]["total_steps"] == 12
+    capsys.readouterr()
+    assert cli.main(["telemetry", "runs", "list", "--runs-root", root]) == 0
+    assert entry["run_id"] in capsys.readouterr().out
+
+
+def test_telemetry_summarize_reads_a_train_run(tmp_path, capsys):
+    """``telemetry summarize`` prints the record of the stream ``train``
+    wrote; a directory with no stream exits 2."""
+    _run(tmp_path / "run")
+    capsys.readouterr()
+    assert cli.main(["telemetry", "summarize", str(tmp_path / "run")]) == 0
+    record = json.loads(capsys.readouterr().out)
+    assert record["metric"] == "run_telemetry_summary" and record["status"] == "ok"
+    assert record["total_steps"] == 12 and record["num_chunks"] >= 1
+    os.makedirs(tmp_path / "empty")
+    assert cli.main(["telemetry", "summarize", str(tmp_path / "empty")]) == 2
+
+
+def test_serve_telemetry_dir_writes_the_stream_and_registers(tmp_path, monkeypatch, capsys):
+    """``serve --telemetry-dir`` writes the serving run's stream there (run
+    start with ``mode: "serve"``, the metrics rollup, run end), and
+    ``--runs-root`` registers it."""
+    monkeypatch.delenv("DIB_RUNS_ROOT", raising=False)
+    ckpt = str(tmp_path / "ckpt")
+    _run(tmp_path / "run", "--checkpoint_dir", ckpt, *CHECKPOINTS)
+    events, root = tmp_path / "events", str(tmp_path / "runs")
+    model_flags = ["--feature_encoder_architecture", "8", "--integration_network_architecture",
+                   "16", "--feature_embedding_dimension", "4", "--batch_size", "64"]
+    assert cli.main(["serve", "--checkpoint_dir", ckpt, *model_flags, "--port", "0",
+                     "--outdir", str(tmp_path / "serve"), "--telemetry-dir", str(events),
+                     "--runs-root", root, "--serve_seconds", "0.2"], device="cpu") == 0
+    stream = [json.loads(line) for line in open(events / "events.jsonl")]
+    assert [e["type"] for e in stream] == ["run_start", "metrics", "run_end"]
+    manifest = stream[0]["manifest"]
+    assert manifest["mode"] == "serve" and manifest["exec_cache"] == 0
+    assert manifest["checkpoint_dir"] == os.path.abspath(ckpt)
+    assert not os.path.exists(tmp_path / "serve" / "events.jsonl")
+    [entry] = [json.loads(line) for line in open(os.path.join(root, "index.jsonl"))]
+    assert entry["run_dir"] == str(events) and entry["status"] == "ok"
 
 
 def test_accepted_values_of_refused_flags_train(tmp_path):
@@ -329,23 +384,41 @@ def test_sgd_matches_optax_sgd():
         np.testing.assert_allclose(weight.detach().numpy(), np.asarray(w), rtol=1e-6, atol=1e-6)
 
 
+# a tiny amorphous_protocols workload: config fields and driver keywords
+PROTOCOL_SETS = [
+    "protocols=('GradualQuench',)", "num_steps=2", "batch_size=4", "number_particles=8",
+    "eval_every=2", "probe_every=2", "grid_side=4", "probe_data_batch=16",
+    "mi_eval_batch_size=16", "mi_eval_batches=1", "warmup_steps=1",
+    "num_synthetic_neighborhoods=64",
+    "model_overrides={'encoder_hidden': (8,), 'embedding_dim': 4, 'num_blocks': 1, "
+    "'num_heads': 2, 'key_dim': 8, 'ff_hidden': (8,), 'head_hidden': (8,)}"]
+
+
+def _workload_argv(outdir):
+    argv = ["workload", "amorphous_protocols", "--outdir", str(outdir)]
+    for item in PROTOCOL_SETS:
+        argv += ["--set", item]
+    return argv
+
+
 def test_workload_amorphous_protocols_runs_on_the_cpu(tmp_path, capsys):
     """``workload amorphous_protocols`` with ``--set`` overrides: config
     fields to the config, the rest to ``run_amorphous_protocols`` and the
     dataset."""
-    sets = ["protocols=('GradualQuench',)", "num_steps=2", "batch_size=4", "number_particles=8",
-            "eval_every=2", "probe_every=2", "grid_side=4", "probe_data_batch=16",
-            "mi_eval_batch_size=16", "mi_eval_batches=1", "warmup_steps=1",
-            "num_synthetic_neighborhoods=64",
-            "model_overrides={'encoder_hidden': (8,), 'embedding_dim': 4, 'num_blocks': 1, "
-            "'num_heads': 2, 'key_dim': 8, 'ff_hidden': (8,), 'head_hidden': (8,)}"]
-    argv = ["workload", "amorphous_protocols", "--outdir", str(tmp_path)]
-    for item in sets:
-        argv += ["--set", item]
-    assert cli.main(argv, device="cpu") == 0
+    assert cli.main(_workload_argv(tmp_path), device="cpu") == 0
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert list(result) == ["GradualQuench"]
     assert result["GradualQuench"]["mi_epochs"] == "<array [1] int64>"
     assert result["GradualQuench"]["mi_bounds_bits"].startswith("<array [1, 8, 2]")
     with pytest.raises(SystemExit, match="Unknown AmorphousWorkloadConfig"):
         cli.main(["workload", "amorphous", "--set", "no_such_field=1"], device="cpu")
+
+
+def test_workload_registers_its_run(tmp_path, monkeypatch):
+    """``workload --runs-root`` registers the workload's run (its stream in
+    ``--outdir``) at its end."""
+    monkeypatch.delenv("DIB_RUNS_ROOT", raising=False)
+    root = str(tmp_path / "runs")
+    assert cli.main([*_workload_argv(tmp_path / "run"), "--runs-root", root], device="cpu") == 0
+    [entry] = [json.loads(line) for line in open(os.path.join(root, "index.jsonl"))]
+    assert entry["run_dir"] == str(tmp_path / "run") and entry["status"] == "ok"

@@ -26,6 +26,7 @@ from dib_tpu_torch.serve import (
     QueueFullError,
     RequestTimeout,
 )
+from dib_tpu_torch.telemetry import Tracer
 
 torch.set_num_threads(1)
 
@@ -183,5 +184,13 @@ def test_batcher_error_isolation_and_validation():
     assert batcher.is_alive()
     batcher.close()
     assert not batcher.is_alive()
-    with pytest.raises(NotImplementedError):
-        MicroBatcher(_StubEngine(), tracer=object())
+    # a tracer receives one batch span per dispatch and one request span per
+    # request the server does not span itself
+    tracer = Tracer()
+    stub = _StubEngine()
+    stub.bucket_for = lambda n: stub.max_bucket   # the batch span names its bucket
+    traced = MicroBatcher(stub, tracer=tracer, max_wait_ms=0.0)
+    traced.submit(np.ones(4, np.float32), timeout_s=30.0, tenant="t").result(10.0)
+    traced.submit(np.ones(4, np.float32), timeout_s=30.0, server_span=True).result(10.0)
+    traced.close()
+    assert tracer.timer.counts == {"batch": 2, "request": 1}
