@@ -8,8 +8,8 @@ CUDA toolkit:
 
 Phases (any failure exits nonzero; nothing is caught and continued):
 
-  1. print the card's name and power limit, and whether ``tensorstore``
-     imports; switch TF32 off
+  1. print the card's name and power limit, the device count, scipy's
+     version and whether ``tensorstore`` imports; switch TF32 off
   2. build every CUDA kernel from ``dib_tpu_torch/csrc`` (one nvcc per
      source, all started together); print each kernel's registers, and
      fail unless the density kernels show no stack and no spills
@@ -154,8 +154,28 @@ Phases (any failure exits nonzero; nothing is caught and continued):
      for every run and ``--index`` for the runs root, and ``runs list``
      holding the runs that phase 12 registered through ``DIB_RUNS_ROOT``
      and phase 13 through ``--runs-root``
- 16. one JSON line listing each ported kernel
- 17. the last line: ``{"ok": true, "device": {...}}``
+ 16. main path 11, every dataset and three more workloads: (a) ``train
+     --dataset diabetes`` in this process at the CLI's defaults from the
+     committed CSV (``data_source`` real; the MI hook at 1024 x 8, G = 10)
+     and ``mice_protein``'s synthetic fallback (G = 77), phase 12's cuts;
+     (b) ``fetch_double_pendulum`` at its defaults, 1000 trajectories
+     simulated on the card (wall time; every kept state within 1e-3 of the
+     energy its initial condition was drawn at), then ``train --dataset
+     double_pendulum --infonce_loss`` (cut to 8 steps per epoch); (c)
+     ``run_boolean_workload`` at its defaults, 2,000 steps (cut from
+     50,000) with an MI check every 250: 8 overlapped checks, the last
+     equal bit for bit to a direct ``channel_mi_bounds``, the step time;
+     (d) ``run_radial_shells_workload`` at its defaults, 20 + 40 epochs
+     (cut from 200 + 2000) with an MI check every 5 epochs (cut from
+     200): 12 checks, the peak shell profile reaching 0.05 bits, and the
+     kernel-vs-plain call on the weights of the check with the largest
+     bounds, whose lower bounds must reach 1e-2 nats; (e) ``run_characterization`` at its defaults
+     (5 channel types x 7 scales x 3 batch sizes x 8 repeats), lower <=
+     upper + 0.02 bits in every cell. Each run's launch counts are read
+     around it, and one MI call of each goes through the kernel and the
+     plain version within 1e-4 nats
+ 17. one JSON line listing each ported kernel
+ 18. the last line: ``{"ok": true, "device": {...}}``
 
 Without a CUDA device it exits nonzero before printing any result.
 """
@@ -256,6 +276,15 @@ def channel_inputs(gen, g, n, d, dtype=torch.float32, m=None, probe=False, lv_ra
     else:
         u = mus + torch.randn(g, n, d, generator=gen, device="cuda") * torch.exp(0.5 * lv)
     return u.to(dtype), mus.to(dtype), lv.to(dtype)
+
+
+def binary_channel_inputs(gen, g, n, logvar=-3.0):
+    """The boolean workload's channels at initialisation: mu = +-1, logvar
+    -3 (d = 1), u drawn from its own row's Gaussian."""
+    mus = (2.0 * torch.randint(0, 2, (g, n, 1), generator=gen, device="cuda") - 1.0)
+    lv = torch.full_like(mus, logvar)
+    u = mus + torch.randn(g, n, 1, generator=gen, device="cuda") * math.exp(0.5 * logvar)
+    return u, mus, lv
 
 
 def row_stats_plain(u, mus, lv, diagonal=True, groups=25):
@@ -486,6 +515,13 @@ def check_row_stats():
         # the untrained flagship's log-variances (PERF.md): the direct difference
         ("logvar -26..20 G=4 N=1024 d=32 f32",
          channel_inputs(gen, 4, 1024, 32, lv_range=(-26.0, 20.0)), True, F32_TOL),
+        # phase 16's shapes: the boolean circuit's binary channels (mu = +-1,
+        # logvar -3: nearly one-hot rows), the radial shells' and the
+        # characterization's d = 8, and mice_protein's 77 channels
+        ("binary G=10 N=1024 d=1 f32", binary_channel_inputs(gen, 10, 1024), True, F32_TOL),
+        ("square G=20 N=1024 d=8 f32", channel_inputs(gen, 20, 1024, 8), True, F32_TOL),
+        ("single group G=1 N=64 d=8 f32", channel_inputs(gen, 1, 64, 8), True, F32_TOL),
+        ("square G=77 N=1024 d=32 f32", channel_inputs(gen, 77, 1024, 32), True, F32_TOL),
     ]
     for name, (u, mus, lv), diagonal, tol in cases:
         got = density.mi_row_stats(u, mus, lv, diagonal=diagonal)
@@ -3431,6 +3467,296 @@ def drive_events(card, tmp, cli_run, http_run, durability, runs_root):
 
 
 # --------------------------------------------------------------------------
+# phase 16: main path 11, every dataset and three more workloads
+
+# the CLI's cuts of phase 12 (4 + 8 epochs, MI bounds and checkpoints every
+# 4); the pendulum's 16,875 steps per epoch at batch 128 are cut to 8
+PENDULUM_STEPS = ["--steps_per_epoch", "8"]
+PENDULUM_DRIFT_TOL = 1e-3     # fractional energy drift of a kept trajectory
+PENDULUM_ENERGY = 9.81        # the energy every initial condition is drawn at (E/g = 4)
+# a kept trajectory drifts under the tolerance from its initial condition's
+# energy, which float32 rounding sets within ~1e-6 of PENDULUM_ENERGY
+PENDULUM_IC_SLACK = 1e-5
+# the boolean workload at its defaults, 50,000 steps cut to 2,000 with the
+# defaults' cadence of 250 kept: 8 MI checks
+BOOLEAN_STEPS, BOOLEAN_MI_EVERY = 2000, 250
+# the radial shells at their defaults, 200 + 2000 epochs cut to 20 + 40,
+# the MI hook's cadence cut with them (every 200 of 2200 epochs, 11
+# checks; every 5 of 60, 12), so the checks span the anneal
+RADIAL_EPOCHS, RADIAL_EVAL_EVERY = (20, 40), 5
+# bits: the peak shell profile's largest entry must reach this (an MI hook
+# that reads ~0 everywhere shows no profile) ...
+RADIAL_PEAK_MIN_BITS = 0.05
+# ... and nats: the kernel-vs-plain call's largest lower bound, so that
+# BOUNDS_TOL is small beside what it compares
+RADIAL_CHECKED_MIN_NATS = 100 * BOUNDS_TOL
+CHARACTERIZATION_SLACK = 0.02  # bits: lower <= upper + slack in each cell
+
+
+def mi_kernel_vs_plain(label, mus, logvars, gen, min_lower_nats=None):
+    """One MI call through the kernel and through the plain version on the
+    same draw: each channel's sandwich bounds within BOUNDS_TOL nats, and,
+    given ``min_lower_nats``, the plain lower bounds reaching it somewhere.
+    Its launches are made after the run's counts were read."""
+    from dib_tpu_torch.ops import density
+    from dib_tpu_torch.ops.gaussian import reparameterize
+    from dib_tpu_torch.ops.info_bounds import sandwich_from_row_stats
+
+    mus, logvars = mus.contiguous(), logvars.contiguous()
+    u = reparameterize(mus, logvars, gen).contiguous()
+    got = sandwich_from_row_stats(*density.mi_row_stats(u, mus, logvars))
+    want = sandwich_from_row_stats(*row_stats_plain(u, mus, logvars))
+    g, n, d = mus.shape
+    if min_lower_nats is not None and want[0].max().item() < min_lower_nats:
+        fail(f"{label}: the checked MI call's lower bounds reach {want[0].max().item():.3e} "
+             f"nats, under {min_lower_nats}")
+    return compare(f"{label}: MI call G={g} N={n} d={d}, kernel vs plain (nats)",
+                   got, want, BOUNDS_TOL)
+
+
+def trained_cli_model(argv, ckpt, epoch):
+    """The model a CLI run trained, its weights read from the final step's
+    leaves; with the run's bundle."""
+    from dib_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(argv)
+    bundle = cli._bundle_from_args(args, CLI_DEVICE)
+    model, _ = cli._model_from_args(args, bundle, device=CLI_DEVICE)
+    model.load_state_dict({name[len("params/model."):]: torch.from_numpy(value)
+                           for name, value in checkpoint_leaves(ckpt, epoch).items()
+                           if name.startswith("params/model.")})
+    return model, bundle
+
+
+def cli_dataset_run(label, tmp, dataset, *extra, source=None):
+    """``train --dataset <dataset>`` in this process at the CLI's defaults and
+    phase 12's cuts, then one MI call of the trained model through the
+    kernel and the plain version."""
+    out, ckpt = os.path.join(tmp, f"{label}_run"), os.path.join(tmp, f"{label}_ckpt")
+    argv = ["train", "--dataset", dataset, "--artifact_outdir", out, "--checkpoint_dir", ckpt,
+            *CLI_CUTS, *extra]
+    summary, launches, wall = cli_in_process(argv)
+    if source is not None and summary.get("data_source") != source:
+        fail(f"train --dataset {dataset}: run_summary data_source "
+             f"{summary.get('data_source')!r}, expected {source!r}")
+    with np.load(os.path.join(out, "info_bounds.npz")) as bounds:
+        if bounds["epochs"].tolist() != [4, 8, 12] or not np.isfinite(bounds["bounds_bits"]).all():
+            fail(f"train --dataset {dataset}: info_bounds epochs {bounds['epochs'].tolist()}")
+    if not math.isfinite(summary["final_loss"]):
+        fail(f"train --dataset {dataset}: final loss {summary['final_loss']}")
+    model, bundle = trained_cli_model(argv, ckpt, CLI_EPOCHS)
+    gen = torch.Generator(device=CLI_DEVICE).manual_seed(SEED + 16)
+    rows = torch.as_tensor(bundle.x_valid, device=CLI_DEVICE)
+    rows = rows[torch.randint(0, len(rows), (EVAL_BATCH,), generator=gen, device=CLI_DEVICE)]
+    with torch.inference_mode():
+        mus, logvars = model.encode(rows)
+    err = mi_kernel_vs_plain(f"train --dataset {dataset}", mus, logvars, gen)
+    print(f"train --dataset {dataset}: {bundle.number_features} channels of "
+          f"{model.noise_shape(1)[-1]}, {len(bundle.x_train)} training rows, data_source "
+          f"{summary.get('data_source')}, final loss {summary['final_loss']:.6f}, "
+          f"mi_row_stats launches {launches['mi_row_stats']}, {wall:.3f} s in process")
+    return dict(launches=launches, wall_s=wall, err=err, summary=summary)
+
+
+def drive_pendulum(card, tmp):
+    """The double pendulum: ``fetch_double_pendulum`` at its defaults
+    simulated on the card (wall time, every kept trajectory's energy within
+    the drift tolerance of the energy its initial conditions were drawn at),
+    then ``train --dataset double_pendulum --infonce_loss`` on its cache."""
+    from dib_tpu_torch.data import pendulum
+
+    data_path = os.path.join(tmp, "pendulum")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bundle = pendulum.fetch_double_pendulum(data_path=data_path, device=CLI_DEVICE)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    trajs = np.load(bundle.extras["cache"])
+    energy = pendulum.total_energy(torch.as_tensor(trajs, device=CLI_DEVICE))
+    drift = float((energy - PENDULUM_ENERGY).abs().max() / PENDULUM_ENERGY)
+    if trajs.shape != (1000, 2500, 4) or not np.isfinite(trajs).all() or \
+            drift >= PENDULUM_DRIFT_TOL + PENDULUM_IC_SLACK:
+        fail(f"double pendulum: trajectories {trajs.shape}, worst energy drift {drift:.3e}")
+    print(f"timing [{card}] double pendulum: fetch_double_pendulum at its defaults, 1000 "
+          f"trajectories x 10,000 RK4 steps (dt 1e-2, float32) simulated on the card "
+          f"(candidates drawn 1.5x), cached as {os.path.basename(bundle.extras['cache'])}: "
+          f"{sim_s:.3f} s (host clock, one run); worst energy drift of a kept state from "
+          f"{PENDULUM_ENERGY} {drift:.6e} (< {PENDULUM_DRIFT_TOL} + {PENDULUM_IC_SLACK})")
+    run = cli_dataset_run("pendulum", tmp, "double_pendulum", "--infonce_loss",
+                          "--data_path", data_path, *PENDULUM_STEPS)
+    run["sim_s"] = sim_s
+    return run
+
+
+def drive_boolean(card):
+    """The boolean workload at its defaults but the steps: the overlapped
+    checks against a direct ``channel_mi_bounds`` on the same weights and
+    noise (bit for bit), the step time, and one check through the kernel
+    and the plain version."""
+    from dib_tpu_torch.ops.entropy import LN2
+    from dib_tpu_torch.workloads import (BooleanTrainer, BooleanWorkloadConfig,
+                                         run_boolean_workload)
+    from dib_tpu_torch.workloads.boolean import BooleanDraws
+
+    config = BooleanWorkloadConfig(num_steps=BOOLEAN_STEPS, mi_every=BOOLEAN_MI_EVERY)
+    reset_launches()
+    t0 = time.perf_counter()
+    result = run_boolean_workload(SEED, config, device=CLI_DEVICE)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    history, state = result["history"], result["state"]
+    checks = BOOLEAN_STEPS // BOOLEAN_MI_EVERY
+    if history["mi_steps"].tolist() != list(range(BOOLEAN_MI_EVERY, BOOLEAN_STEPS + 1,
+                                                  BOOLEAN_MI_EVERY)) or \
+            launches["mi_row_stats"] != checks or \
+            not all(np.isfinite(history[k]).all() for k in history):
+        fail(f"boolean: checks at {history['mi_steps'].tolist()}, launches {launches}")
+    # the checks' generator (seeded SEED + 1) as it stood before the last
+    # check: each check draws one [F, N, d] normal
+    trainer = BooleanTrainer(result["bundle"], config, device=CLI_DEVICE)
+    shape = state.model.noise_shape(len(trainer._x))
+    gen = torch.Generator(device=CLI_DEVICE).manual_seed(SEED + 1)
+    for _ in range(checks - 1):
+        torch.randn(shape, generator=gen, device=CLI_DEVICE)
+    lower, upper = trainer.channel_mi_bounds(state, gen)
+    if not (np.array_equal(lower.cpu().numpy() / LN2, history["mi_lower_bits"][-1]) and
+            np.array_equal(upper.cpu().numpy() / LN2, history["mi_upper_bits"][-1])):
+        fail("boolean: the overlapped check differs from a direct channel_mi_bounds on the "
+             "same weights and noise")
+    with torch.inference_mode():
+        mus, logvars = state.model.encoders(trainer._x)
+    err = mi_kernel_vs_plain("boolean", mus, logvars, gen)
+    draws = BooleanDraws(torch.Generator(device=CLI_DEVICE).manual_seed(SEED + 17))
+    idx, eps = draws.step(len(trainer._x), config.batch_size,
+                          state.model.noise_shape(config.batch_size))
+    step_ms = host_ms({"step": lambda: trainer.train_step(state, idx, eps, 1.0)})["step"]
+    print(f"boolean workload: {config.num_steps} steps (cut from 50,000) of batch "
+          f"{config.batch_size}, {checks} overlapped MI checks of G={mus.shape[0]}, "
+          f"N={mus.shape[1]}, d={mus.shape[2]} (one launch each), the last equal bit for bit "
+          f"to a direct channel_mi_bounds; final accuracy {result['final_accuracy']:.4f}, "
+          f"rank agreement with Shapley {result['rank_agreement_shapley']:.4f}")
+    print(f"timing [{card}] boolean workload: run_boolean_workload {wall:.3f} s (host clock, "
+          f"one run, oracles included); training step {step_ms:.4f} ms (host clock, median "
+          f"of 10)")
+    return dict(launches=launches, wall_s=wall, step_ms=step_ms, err=err)
+
+
+def drive_radial_shells(card):
+    """The radial shells at their defaults but the epochs and the MI hook's
+    cadence. The workload's hook also keeps the encoder's (mu, logvar) on
+    one batch of validation rows at every check; the kernel-vs-plain call
+    is made after the run on those of the check whose bounds were largest."""
+    from dib_tpu_torch.workloads import RadialShellsConfig, radial_shells
+
+    config = RadialShellsConfig(num_pretraining_epochs=RADIAL_EPOCHS[0],
+                                num_annealing_epochs=RADIAL_EPOCHS[1],
+                                eval_every=RADIAL_EVAL_EVERY)
+    gen = torch.Generator(device=CLI_DEVICE).manual_seed(SEED + 18)
+    encoded = []
+
+    class KeepingHook(radial_shells.InfoPerFeatureHook):
+        def __call__(self, trainer, state, epoch):
+            super().__call__(trainer, state, epoch)
+            if not encoded:
+                self.kept_idx = torch.randint(0, len(self._rows), (config.mi_eval_batch_size,),
+                                              generator=gen, device=CLI_DEVICE)
+            with torch.inference_mode():
+                encoded.append(trainer.model.encode(self._rows[self.kept_idx]))
+
+    reset_launches()
+    saved_hook = radial_shells.InfoPerFeatureHook
+    radial_shells.InfoPerFeatureHook = KeepingHook
+    try:
+        t0 = time.perf_counter()
+        result = radial_shells.run_radial_shells_workload(SEED, config, device=CLI_DEVICE,
+                                                          render=False)
+        wall = time.perf_counter() - t0
+    finally:
+        radial_shells.InfoPerFeatureHook = saved_hook
+    launches = read_launches()
+    bounds = result["mi_bounds_bits"]
+    calls = len(result["mi_epochs"])
+    checks = sum(RADIAL_EPOCHS) // RADIAL_EVAL_EVERY
+    peak = result["peak_shell_profile_bits"]
+    if bounds.shape != (checks, 2 * config.num_shells, 2) or len(encoded) != calls or \
+            not np.isfinite(bounds).all() or \
+            launches["mi_row_stats"] != calls * config.mi_eval_batches:
+        fail(f"radial shells: bounds {bounds.shape}, {len(encoded)} encodings, "
+             f"launches {launches}")
+    if peak.max() < RADIAL_PEAK_MIN_BITS:
+        fail(f"radial shells: peak shell profile {peak.tolist()} bits, none reaches "
+             f"{RADIAL_PEAK_MIN_BITS}")
+    largest = int(np.argmax(bounds[:, :, 0].sum(-1)))
+    mus, logvars = encoded[largest]
+    err = mi_kernel_vs_plain(f"radial shells (epoch {result['mi_epochs'][largest]})",
+                             mus, logvars, gen, min_lower_nats=RADIAL_CHECKED_MIN_NATS)
+    print(f"timing [{card}] radial shells: run_radial_shells_workload at its defaults, "
+          f"{sum(RADIAL_EPOCHS)} epochs (cut from 2200) of {len(result['bundle'].x_train)} "
+          f"rows, {calls} MI hook calls (every {RADIAL_EVAL_EVERY} epochs, cut from 200) of "
+          f"G={mus.shape[0]}, d={mus.shape[2]}: {wall:.3f} s (host clock, one run); peak "
+          f"shell profile (bits) {np.round(peak, 4).tolist()}; largest lower bound per check "
+          f"(bits) {np.round(bounds[:, :, 0].max(-1), 4).tolist()}")
+    return dict(launches=launches, wall_s=wall, err=err)
+
+
+def drive_characterization(card):
+    """The characterization sweep at its defaults: lower <= upper + slack in
+    every cell."""
+    from dib_tpu_torch.workloads import run_characterization
+
+    reset_launches()
+    t0 = time.perf_counter()
+    results = run_characterization(device=CLI_DEVICE)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if len(results) != 5 * 7 * 3 or launches["mi_row_stats"] != len(results) * 8:
+        fail(f"characterization: {len(results)} cells, launches {launches}")
+    for r in results:
+        values = (r.mc_truth, r.lower_mean, r.upper_mean, r.lower_std, r.upper_std)
+        if not all(math.isfinite(v) for v in values) or \
+                r.lower_mean > r.upper_mean + CHARACTERIZATION_SLACK:
+            fail(f"characterization: {r}")
+    worst = max(results, key=lambda r: abs(r.lower_residual))
+    channel = results[0].channel
+    gen = torch.Generator(device=CLI_DEVICE).manual_seed(SEED + 19)
+    x = channel.sample_x(np.random.default_rng(SEED), 64)
+    mus = torch.as_tensor(channel.mus(x), dtype=torch.float32, device=CLI_DEVICE)[None]
+    err = mi_kernel_vs_plain("characterization", mus, torch.full_like(mus, channel.logvar), gen)
+    print(f"timing [{card}] characterization: run_characterization at its defaults, "
+          f"{len(results)} cells (5 channel types x 7 scales x 3 batch sizes, 8 repeats, Monte "
+          f"Carlo truth of 20,000 samples on the host): {wall:.3f} s (host clock, one run); "
+          f"lower <= upper + {CHARACTERIZATION_SLACK} bits in every cell; the largest lower "
+          f"residual {worst.lower_residual:+.4f} bits ({worst.channel.input_bits}-bit X, scale "
+          f"{worst.channel.scale:.3f}, B={worst.batch_size})")
+    return dict(launches=launches, wall_s=wall, err=err)
+
+
+def drive_datasets(card):
+    """Phase 16: the tabular CLI (diabetes from its committed CSV, mice_protein
+    synthetic at 77 channels), the double pendulum, and the boolean, radial
+    shells and characterization workloads."""
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_datasets_") as tmp:
+        diabetes = cli_dataset_run("diabetes", tmp, "diabetes", "--data_path",
+                                   os.path.join(ROOT, "data"), source="real")
+        mice = cli_dataset_run("mice", tmp, "mice_protein", "--data_path",
+                               os.path.join(tmp, "absent"), source="synthetic")
+        pendulum_run = drive_pendulum(card, tmp)
+    print(f"timing [{card}] tabular CLI in process (host clock, s): diabetes "
+          f"{diabetes['wall_s']:.3f}, mice_protein {mice['wall_s']:.3f}, double_pendulum "
+          f"{pendulum_run['wall_s']:.3f}")
+    boolean = drive_boolean(card)
+    radial = drive_radial_shells(card)
+    characterization = drive_characterization(card)
+    runs = (diabetes, mice, pendulum_run, boolean, radial, characterization)
+    launches = add_launches(*(r["launches"] for r in runs))
+    print(f"main path launches (datasets and workloads: diabetes, mice_protein, "
+          f"double_pendulum, boolean, radial shells, characterization): "
+          f"{json.dumps(launches)}; phase 16 took {time.perf_counter() - phase_t0:.1f} s")
+    return dict(launches=launches)
+
+
+# --------------------------------------------------------------------------
 # phase 10: main path 4, the kernel microbench
 
 def run_microbench():
@@ -3706,6 +4032,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    import scipy
+
+    print(f"scipy {scipy.__version__} (the boolean workload's spearmanr and the tabular "
+          f"datasets' norm.ppf)")
     try:
         import tensorstore
     except ImportError as exc:
@@ -3762,6 +4092,7 @@ def main() -> int:
             events_run = drive_events(card, tmp, cli_run, http_run, durability, runs_root)
     finally:
         os.environ.pop("DIB_TELEMETRY_STRICT", None)
+    datasets_run = drive_datasets(card)
     bench_launches = run_microbench()
 
     # ---- 11. timings ---------------------------------------------------
@@ -3825,11 +4156,11 @@ def main() -> int:
           f"(host clock, one run); probe hook {probe_ms:.4f} ms per call")
     time_sweep(card, sweep_run, northstar, paths_step, flagship)
 
-    # ---- 16-17. summary lines ------------------------------------------
+    # ---- 17-18. summary lines ------------------------------------------
     runs = (serving["launches"], flagship["launches"], driver["launches"],
             sweep_run["launches"], northstar["launches"], cli_run["launches"],
             http_run["launches"], durability["launches"], events_run["launches"],
-            bench_launches)
+            datasets_run["launches"], bench_launches)
     total = {name: sum(r.get(name, 0) for r in runs)
              for name in ("mi_row_stats", "flash_attention", "flash_attention_bf16",
                           "log_density_mat")}

@@ -15,7 +15,8 @@ intact checkpoint, and with ``--watchdog`` relaunches itself as a worker
 under a supervisor that kills a stalled worker and relaunches a dead one
 (``train/watchdog.py``). ``workload amorphous|amorphous_protocols`` runs
 the flagship drivers (``--telemetry-dir`` brackets the run with
-``run_start`` and ``run_end``).
+``run_start`` and ``run_end``), and ``workload
+boolean|radial_shells|characterization`` the other paper workloads.
 ``serve`` serves a checkpoint that ``train`` wrote over the JSON HTTP API of
 :mod:`dib_tpu_torch.serve` (serially or a sweep's β-labeled members; in
 process, behind ``--workers`` engine subprocesses, or as a ``--prefork``
@@ -29,9 +30,11 @@ the run registry at its end.
 What the port does not implement is refused before any training, with one
 line naming its item in ROADMAP.md, never ignored: meshes (``--mesh_*``,
 ``--engine shard_map``, item 7), the other subcommands and ``telemetry
-tail|check|fleet`` (item 6), the other workloads (item 5), datasets the
-port's registry lacks (item 4), contrastive sweeps (item 8), and serve's
-``--exec_cache``.
+tail|check|fleet`` (item 6), the chaos workloads (item 5), contrastive
+sweeps (item 8), and serve's ``--exec_cache``. Every dataset of the JAX
+package's registry trains; a dataset registered with the InfoNCE loss
+(``double_pendulum``) needs ``--infonce_loss`` and is refused at parse
+time without it, where the JAX package's trainer refuses it later.
 
 Artifacts (in ``--artifact_outdir``), written in this order:
   - ``history.npz`` (``history_replica{r}.npz`` for a sweep): beta,
@@ -62,8 +65,7 @@ from typing import Sequence
 
 _ITEM = "ROADMAP.md queue 1, item {}"
 JAX_CHECKPOINTS = _ITEM.format("1 (reading JAX/Orbax checkpoints)")
-DATASETS = _ITEM.format("4 (the tabular and pendulum datasets)")
-WORKLOADS = _ITEM.format("5 (the other workloads)")
+WORKLOADS = _ITEM.format("5 (the chaos workloads)")
 SUBCOMMANDS = _ITEM.format("6 (the CLI's other subcommands)")
 MULTI_GPU = _ITEM.format("7 (multi-GPU replicas)")
 CONTRASTIVE_SWEEP = _ITEM.format("8 (contrastive sweeps)")
@@ -85,7 +87,8 @@ REFUSED_SUBCOMMANDS = {
     "ckpt": SUBCOMMANDS,
     "study": SUBCOMMANDS,
 }
-PORTED_WORKLOADS = ("amorphous", "amorphous_protocols")
+PORTED_WORKLOADS = ("amorphous", "amorphous_protocols", "boolean", "characterization",
+                    "radial_shells")
 
 
 def _add_telemetry_dir_flag(parser: argparse.ArgumentParser, default_desc: str) -> None:
@@ -116,8 +119,8 @@ def _add_model_flags(parser: argparse.ArgumentParser) -> None:
     """Flags that define the model and its dataset (everything needed to
     rebuild the architecture a checkpoint was trained with)."""
     parser.add_argument("--dataset", default="boolean_circuit",
-                        help="Registered dataset name (the port has boolean_circuit and "
-                             "amorphous_particles).")
+                        help="Registered dataset name (double_pendulum needs "
+                             "--infonce_loss).")
     parser.add_argument("--data_path", type=str, default="./data/")
     parser.add_argument("--ib", action=argparse.BooleanOptionalAction, default=False,
                         help="Vanilla IB: all features into a single bottleneck.")
@@ -166,8 +169,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("command", nargs="?", default="train",
                         choices=["train", "workload", "telemetry", "serve", "lint", "sched",
                                  "stream", "ckpt", "study"],
-                        help="'train' (flags below), 'workload' (amorphous, "
-                             "amorphous_protocols; see `dib_tpu_torch workload --help`), "
+                        help="'train' (flags below), 'workload' (see `dib_tpu_torch "
+                             "workload --help`), "
                              "'serve' or 'telemetry'. The others are not ported and are "
                              "refused.")
     _add_model_flags(parser)
@@ -242,11 +245,13 @@ def refusal(args, defaults: dict) -> str | None:
 
 def _model_refusal(args) -> str | None:
     """What the port refuses in the flags shared by ``train`` and ``serve``."""
-    from dib_tpu_torch.data.registry import available_datasets
+    from dib_tpu_torch.data.registry import available_datasets, dataset_loss
 
     if args.dataset not in available_datasets():
-        return (f"dataset {args.dataset!r} is not ported (the port has "
-                f"{available_datasets()}; {DATASETS})")
+        return f"Unknown dataset {args.dataset!r}; the registry has {available_datasets()}"
+    if dataset_loss(args.dataset) == "infonce" and not args.infonce_loss:
+        return (f"--dataset {args.dataset} trains with the InfoNCE loss, which needs a y "
+                "encoder: add --infonce_loss")
     if args.infonce_loss and args.sweep_beta_ends:
         return f"--infonce_loss with --sweep_beta_ends is not ported ({CONTRASTIVE_SWEEP})"
     if args.optimizer not in ("adam", "sgd"):
@@ -254,8 +259,11 @@ def _model_refusal(args) -> str | None:
     return None
 
 
-def _dataset_kwargs(args) -> dict:
+def _dataset_kwargs(args, device=None) -> dict:
+    """The dataset's arguments from the flags (``device``: where the double
+    pendulum simulates, when no cache holds its trajectories)."""
     return {
+        "device": device,
         "data_path": args.data_path,
         "boolean_random_circuit": args.boolean_random_circuit,
         "boolean_number_input_gates": args.boolean_number_input_gates,
@@ -264,12 +272,13 @@ def _dataset_kwargs(args) -> dict:
     }
 
 
-def _bundle_from_args(args):
+def _bundle_from_args(args, device=None):
     """The dataset bundle from the model flags (``--ib`` and
-    ``--infonce_loss`` adjust it, as the trainer expects)."""
+    ``--infonce_loss`` adjust it, as the trainer expects), made on
+    ``device`` where a dataset computes on one."""
     from dib_tpu_torch.data import get_dataset
 
-    bundle = get_dataset(args.dataset, **_dataset_kwargs(args))
+    bundle = get_dataset(args.dataset, **_dataset_kwargs(args, device))
     if args.ib:
         bundle = bundle.as_vanilla_ib()
     if args.infonce_loss:
@@ -372,7 +381,7 @@ def run(args, device=None) -> dict:
     if args.save_compression_matrices_frequency and not render:
         raise SystemExit("--save_compression_matrices_frequency draws with matplotlib, which "
                          "does not import here; drop the flag")
-    bundle = _bundle_from_args(args)
+    bundle = _bundle_from_args(args, device)
     config = _train_config(args)
     outdir = args.artifact_outdir
     os.makedirs(outdir, exist_ok=True)
@@ -644,6 +653,21 @@ def _apply_config(config_cls, overrides: dict):
     return config_cls(**overrides)
 
 
+def _check_kwargs(fn, overrides: dict) -> dict:
+    """Validate --set names against a keyword-style workload signature
+    (``seed`` comes from --seed, ``device`` from the caller)."""
+    import inspect
+
+    valid = set(inspect.signature(fn).parameters) - {"seed", "device"}
+    if "seed" in overrides:
+        raise SystemExit("Use --seed, not --set seed=...")
+    bad = set(overrides) - valid
+    if bad:
+        raise SystemExit(f"Unknown {fn.__name__} argument(s) {sorted(bad)}; "
+                         f"valid: {sorted(valid)}")
+    return overrides
+
+
 def _json_safe(x, depth: int = 0):
     """Compact JSON view of a workload result (arrays and modules -> labels)."""
     import dataclasses
@@ -694,6 +718,10 @@ def workload_main(argv: Sequence[str], device=None) -> int:
     args = parser.parse_args(argv)
     if args.name not in PORTED_WORKLOADS:
         parser.error(f"workload {args.name!r} is not ported ({WORKLOADS})")
+    if args.outdir and args.name == "boolean":
+        # it writes no artifact file: a silently ignored --outdir wastes a long run
+        raise SystemExit(f"workload {args.name!r} does not write artifacts; drop --outdir "
+                         "and read the JSON summary (or use the Python API)")
     overrides = _parse_sets(args.set)
 
     from dib_tpu_torch import workloads as wl
@@ -712,11 +740,37 @@ def workload_main(argv: Sequence[str], device=None) -> int:
             telemetry.run_start(runtime_manifest(config=config, extra={
                 "workload": args.name, "seed": args.seed}))
 
+    def finish():
+        if telemetry is not None:
+            telemetry.run_end(status="ok")
+            telemetry.close()
+            _register_run_dir(args, os.path.dirname(telemetry.path))
+
+    if args.name == "characterization":
+        start()
+        results = wl.run_characterization(
+            seed=args.seed, device=device,
+            **_check_kwargs(wl.run_characterization, overrides))
+        if args.outdir and render:
+            wl.save_characterization_plots(results, args.outdir)
+        finish()
+        # one serialization per cell: the sweep is the product
+        print(json.dumps({"results": [_json_safe(r) for r in results]}))
+        return 0
     if args.name == "amorphous":
         config = _apply_config(wl.AmorphousWorkloadConfig, overrides)
         start(config)
         result = wl.run_amorphous_workload(args.seed, config, device=device, render=render,
                                            **kwargs)
+    elif args.name == "boolean":
+        config = _apply_config(wl.BooleanWorkloadConfig, overrides)
+        start(config)
+        result = wl.run_boolean_workload(args.seed, config, telemetry=telemetry, device=device)
+    elif args.name == "radial_shells":
+        config = _apply_config(wl.RadialShellsConfig, overrides)
+        start(config)
+        result = wl.run_radial_shells_workload(args.seed, config, device=device, render=render,
+                                               **kwargs)
     else:
         import dataclasses
 
@@ -728,10 +782,7 @@ def workload_main(argv: Sequence[str], device=None) -> int:
         start(config)
         result = wl.run_amorphous_protocols(args.seed, config=config, device=device,
                                             render=render, **rest, **kwargs)
-    if telemetry is not None:
-        telemetry.run_end(status="ok")
-        telemetry.close()
-        _register_run_dir(args, os.path.dirname(telemetry.path))
+    finish()
     print(json.dumps(_json_safe(result)))
     return 0
 
@@ -903,7 +954,7 @@ def serve_main(argv: Sequence[str], device=None) -> int:
     from dib_tpu_torch.train.checkpoint import DIBCheckpointer
 
     requested, device = device, resolve_device(device)
-    bundle = _bundle_from_args(args)
+    bundle = _bundle_from_args(args, device)
     config = _serve_config(args)
     buckets = list(args.buckets or DEFAULT_BUCKETS)
     os.makedirs(args.outdir, exist_ok=True)

@@ -1,5 +1,5 @@
-"""Amorphous-plasticity (glass) data: per-particle feature sets
-(counterpart of the per-particle part of ``dib_tpu/data/amorphous.py``).
+"""Amorphous-plasticity (glass) data: per-particle feature sets and radial
+density shells (counterpart of ``dib_tpu/data/amorphous.py``).
 
 Pure numpy, so the same seed gives the same arrays as the JAX package:
 
@@ -10,7 +10,9 @@ Pure numpy, so the same seed gives the same arrays as the JAX package:
   - ``synthetic_glass_neighborhoods``: surrogate binary-mixture
     neighborhoods with a planted local-structure -> rearrangement signal,
     used when no real ``{protocol}.npz`` export is present;
-  - ``load_glass_splits`` / ``load_glass_protocol``: the real exports.
+  - ``load_glass_splits`` / ``load_glass_protocol``: the real exports;
+  - ``fetch_amorphous_radial_shells``: per-shell, per-type particle
+    densities, one scalar channel each.
 """
 
 from __future__ import annotations
@@ -152,4 +154,58 @@ def fetch_amorphous_particles(data_path: str = "./data/", protocol: str = "Gradu
             "source": source,
             "number_particles_to_use": number_particles_to_use,
         },
+    )
+
+
+@register_dataset("amorphous_radial_shells")
+def fetch_amorphous_radial_shells(data_path: str = "./data/", protocol: str = "GradualQuench",
+                                  num_shells: int = 10, max_radius: float = 8.0,
+                                  num_synthetic_neighborhoods: int = 4096, seed: int = 0,
+                                  **_) -> DatasetBundle:
+    """Radial-density-shell features for the standard Distributed IB model.
+
+    Each neighborhood becomes ``2 * num_shells`` scalar features: the count
+    of type-A and of type-B particles in each radial shell, divided by the
+    shell's area, one bottleneck each. The real ``{protocol}.npz`` export is
+    read when present; otherwise the synthetic neighborhoods, the first 15%
+    held out.
+    """
+    real = load_glass_splits(data_path, protocol)
+    if real is None:
+        pos, typ, labels = synthetic_glass_neighborhoods(num_synthetic_neighborhoods, seed=seed)
+        n_valid = max(int(0.15 * len(labels)), 1)
+        splits = {
+            "val": (pos[:n_valid], typ[:n_valid], labels[:n_valid]),
+            "train": (pos[n_valid:], typ[n_valid:], labels[n_valid:]),
+        }
+    else:
+        splits = real
+
+    edges = np.linspace(0.0, max_radius, num_shells + 1)
+    areas = np.pi * (edges[1:] ** 2 - edges[:-1] ** 2)
+
+    def shell_features(positions, types):
+        out = np.zeros((len(positions), 2 * num_shells), dtype=np.float32)
+        for i, (p, t) in enumerate(zip(positions, types)):
+            r = np.sqrt(np.sum(np.asarray(p) ** 2, -1))
+            t = np.asarray(t).astype(np.int32).reshape(-1)
+            for type_id in (1, 2):
+                hist, _ = np.histogram(r[t == type_id], bins=edges)
+                out[i, (type_id - 1) * num_shells: type_id * num_shells] = hist / areas
+        return out
+
+    labels = [f"shell{j}_r{edges[j]:.1f}-{edges[j + 1]:.1f}_type{t}"
+              for t in "AB" for j in range(num_shells)]
+    return DatasetBundle(
+        x_train=shell_features(*splits["train"][:2]),
+        y_train=splits["train"][2].astype(np.float32),
+        x_valid=shell_features(*splits["val"][:2]),
+        y_valid=splits["val"][2].astype(np.float32),
+        feature_dimensionalities=[1] * (2 * num_shells),
+        output_dimensionality=1,
+        loss="bce",
+        loss_is_info_based=True,
+        metrics=("accuracy",),
+        feature_labels=labels,
+        extras={"protocol": protocol, "shell_edges": edges},
     )

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from dib_tpu_torch.data.registry import DatasetBundle, register_dataset
-from dib_tpu_torch.ops.entropy import sequence_entropy_bits
+from dib_tpu_torch.ops.entropy import mutual_information_bits, sequence_entropy_bits
 
 GATES = (np.logical_and, np.logical_or, np.logical_xor)
 
@@ -58,6 +58,18 @@ def full_truth_table(circuit_specification) -> np.ndarray:
     grids = np.meshgrid(*[[0, 1]] * n)
     inputs = np.stack(grids, -1).reshape(-1, n)
     return apply_gates(inputs, circuit_specification)
+
+
+def exact_subset_informations(truth_table: np.ndarray, num_inputs: int) -> dict:
+    """Exact MI (bits) of EVERY input subset with the output: the ground
+    truth the DIB allocation is held to. Returns {subset (tuple of input
+    indices): MI in bits}, the empty subset included."""
+    y = truth_table[:, -1]
+    out = {(): 0.0}
+    for mask in range(1, 2 ** num_inputs):
+        subset = tuple(i for i in range(num_inputs) if (mask >> i) & 1)
+        out[subset] = mutual_information_bits(truth_table[:, list(subset)], y)
+    return out
 
 
 @register_dataset("boolean_circuit")

@@ -53,16 +53,30 @@ class DatasetBundle:
 
 
 _REGISTRY: Dict[str, Callable[..., DatasetBundle]] = {}
+# datasets whose bundles need a loss of their own, known before fetching
+_LOSSES: Dict[str, str] = {}
 
 
-def register_dataset(name: str):
-    """Decorator: register a fetch function under ``name``."""
+def register_dataset(name: str, loss: str | None = None):
+    """Decorator: register a fetch function under ``name``. ``loss`` names
+    the loss its bundles carry where the model must be built for it
+    (``'infonce'`` needs a y encoder), so a caller can check before
+    fetching."""
 
     def deco(fn):
         _REGISTRY[name] = fn
+        if loss is not None:
+            _LOSSES[name] = loss
         return fn
 
     return deco
+
+
+def dataset_loss(name: str) -> str | None:
+    """The loss declared with ``register_dataset`` for ``name``, if any."""
+    import dib_tpu_torch.data  # noqa: F401  (registers every dataset)
+
+    return _LOSSES.get(name)
 
 
 def get_dataset(name: str, **kwargs) -> DatasetBundle:

@@ -15,6 +15,11 @@ a Flax ``PerParticleDIBModel``
     params/aggregator/SetAttentionBlock_i/MLP_0/Dense_k/{kernel, bias}
     params/aggregator/Dense_k/{kernel, bias}
 
+the boolean workload's Flax ``BooleanDIBModel``
+
+    params/encoders/VmapSimpleBinaryEncoder_0/{mu_scale, logvar} [F, 1, d]
+    params/integration/Dense_k/{kernel, bias}
+
 a Flax ``SetTransformer`` on its own the ``aggregator`` subtree, and a Flax
 ``YEncoder`` (or ``GaussianEncoder``) on its own ``MLP_0/Dense_k``. The
 trees here hold numpy arrays (``jax.device_get`` of a Flax tree, or an Orbax
@@ -49,6 +54,7 @@ _SET_TRANSFORMER = (
 )
 _RULES = (
     ("encoders.mlp.layers.{k}.{leaf}", "encoders/VmapGaussianEncoder_0/MLP_0/Dense_{k}/{leaf}"),
+    ("encoders.{leaf}", "encoders/VmapSimpleBinaryEncoder_0/{leaf}"),    # the binary bank
     ("integration.layers.{k}.{leaf}", "integration/Dense_{k}/{leaf}"),
     ("particle_encoder.mlp.layers.{k}.{leaf}", "particle_encoder/MLP_0/Dense_{k}/{leaf}"),
     ("mlp.layers.{k}.{leaf}", "MLP_0/Dense_{k}/{leaf}"),    # a YEncoder on its own

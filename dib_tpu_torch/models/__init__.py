@@ -5,6 +5,8 @@ from dib_tpu_torch.models.dib import DistributedIBModel
 from dib_tpu_torch.models.encoders import (
     FeatureEncoderBank,
     GaussianEncoder,
+    SimpleBinaryEncoder,
+    SimpleBinaryEncoderBank,
     YEncoder,
     pad_and_stack_features,
 )

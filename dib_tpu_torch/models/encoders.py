@@ -160,3 +160,37 @@ class YEncoder(nn.Module):
 
     def forward(self, y: torch.Tensor) -> torch.Tensor:
         return self.mlp(positional_encoding(y, self.frequencies))
+
+
+class SimpleBinaryEncoder(nn.Module):
+    """Two-parameter encoder of a binary +-1 feature: x -> N(x * mu_scale,
+    e^logvar), a trainable mean scale (initialised to 1) and a trainable
+    log-variance shared by every input (initialised to ``logvar_init``).
+    Input [B, 1]; outputs [B, d]."""
+
+    def __init__(self, embedding_dim: int = 1, logvar_init: float = -3.0):
+        super().__init__()
+        self.mu_scale = nn.Parameter(torch.ones(1, embedding_dim))
+        self.logvar = nn.Parameter(torch.full((1, embedding_dim), float(logvar_init)))
+
+    def forward(self, x: torch.Tensor):
+        mus = x * self.mu_scale
+        return mus, self.logvar.expand(mus.shape)
+
+
+class SimpleBinaryEncoderBank(nn.Module):
+    """F :class:`SimpleBinaryEncoder` s as one module: parameters stacked
+    over F (``mu_scale`` and ``logvar`` each [F, 1, d], the layout of the
+    Flax bank's ``nn.vmap``), applied by broadcasting, with no loop over
+    channels. Input [B, F] of +-1 values; outputs (mus, logvars), each
+    [F, B, d]."""
+
+    def __init__(self, num_features: int, embedding_dim: int = 1, logvar_init: float = -3.0):
+        super().__init__()
+        self.mu_scale = nn.Parameter(torch.ones(num_features, 1, embedding_dim))
+        self.logvar = nn.Parameter(torch.full((num_features, 1, embedding_dim),
+                                              float(logvar_init)))
+
+    def forward(self, x: torch.Tensor):
+        mus = x.transpose(0, 1)[..., None] * self.mu_scale          # [F, B, d]
+        return mus, self.logvar.expand(mus.shape)

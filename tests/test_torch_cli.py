@@ -28,6 +28,7 @@ from dib_tpu_torch import cli
 import dib_tpu_torch.train
 import dib_tpu_torch.train.hooks
 from dib_tpu_torch.data import get_dataset
+from dib_tpu_torch.data.registry import dataset_loss
 from dib_tpu_torch.models import DistributedIBModel
 from dib_tpu_torch.train import DIBTrainer, Every, InfoPerFeatureHook, TrainConfig, make_optimizer
 from dib_tpu_torch.train.hooks import check_channel_width
@@ -78,13 +79,9 @@ def test_parser_keeps_every_jax_flag_and_default():
 
 @pytest.mark.parametrize("argv,env", [
     (["--mesh_data", "2"], {}),
-    (["--dataset", "double_pendulum"], {}),
     (["--mesh_beta", "2"], {}),
     (["--engine", "shard_map"], {}),
-    (["--dataset", "amorphous_radial_shells"], {}),
-    (["--dataset", "diabetes"], {}),
     (["--infonce_loss", "--sweep_beta_ends", "0.1"], {}),
-    (["--dataset", "wine"], {}),
 ])
 def test_unported_flags_are_refused_at_parse_time(monkeypatch, capsys, argv, env):
     for name, value in env.items():
@@ -94,6 +91,33 @@ def test_unported_flags_are_refused_at_parse_time(monkeypatch, capsys, argv, env
     assert excinfo.value.code == 2
     err = capsys.readouterr().err.strip().splitlines()[-1]
     assert "not ported" in err and ROADMAP_ITEM in err, err
+
+
+@pytest.mark.parametrize("dataset", ["double_pendulum", "amorphous_radial_shells", "diabetes",
+                                     "wine"])
+def test_datasets_are_accepted_at_parse_time(capsys, dataset):
+    """Every dataset of the JAX registry trains; the double pendulum's
+    InfoNCE bundle needs --infonce_loss, as in the JAX package."""
+    extra = ["--infonce_loss"] if dataset == "double_pendulum" else []
+    args = cli.build_parser().parse_args(["train", "--dataset", dataset, *extra])
+    assert args.dataset == dataset
+    if extra:
+        with pytest.raises(SystemExit) as excinfo:
+            cli.build_parser().parse_args(["train", "--dataset", dataset])
+        assert excinfo.value.code == 2
+        assert "add --infonce_loss" in capsys.readouterr().err.strip().splitlines()[-1]
+
+
+def test_every_jax_dataset_is_registered_and_unknown_names_are_refused(capsys):
+    from dib_tpu.data import available_datasets
+
+    assert get_dataset.__module__ == "dib_tpu_torch.data.registry"
+    for name in available_datasets():
+        extra = ["--infonce_loss"] if dataset_loss(name) == "infonce" else []
+        cli.build_parser().parse_args(["train", "--dataset", name, *extra])
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["train", "--dataset", "no_such_dataset"])
+    assert "Unknown dataset 'no_such_dataset'" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("argv,env", [
@@ -115,7 +139,7 @@ def test_durability_flags_are_ported(monkeypatch, argv, env):
     ["lint"], ["ckpt", "scrub", "x"],
     ["telemetry", "tail", "x"], ["telemetry", "check", "x"],
     ["telemetry", "fleet", "summarize", "x"],
-    ["workload", "boolean"], ["workload", "chaos"],
+    ["workload", "chaos_state_sweep"], ["workload", "chaos"],
 ])
 def test_unported_subcommands_are_refused(capsys, argv):
     try:
@@ -412,6 +436,41 @@ def test_workload_amorphous_protocols_runs_on_the_cpu(tmp_path, capsys):
     assert result["GradualQuench"]["mi_bounds_bits"].startswith("<array [1, 8, 2]")
     with pytest.raises(SystemExit, match="Unknown AmorphousWorkloadConfig"):
         cli.main(["workload", "amorphous", "--set", "no_such_field=1"], device="cpu")
+
+
+@pytest.mark.parametrize("name", ["chaos", "chaos_state_sweep"])
+def test_chaos_workloads_are_refused_naming_item_5(capsys, name):
+    with pytest.raises(SystemExit) as excinfo:
+        cli.main(["workload", name], device="cpu")
+    assert excinfo.value.code == 2
+    assert f"{ROADMAP_ITEM} 5 (the chaos workloads)" in capsys.readouterr().err
+
+
+def test_workload_boolean_runs_on_the_cpu(tmp_path, capsys):
+    """``workload boolean`` at a tiny size prints the result's summary;
+    ``--outdir`` is refused, as the JAX CLI refuses it (no artifact files)."""
+    argv = ["workload", "boolean", "--set", "num_steps=4", "--set", "mi_every=2",
+            "--set", "batch_size=32", "--set", "integration_hidden=(8,)"]
+    assert cli.main(argv, device="cpu") == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["history"]["mi_lower_bits"] == "<array [2, 10] float32>"
+    assert result["subset_informations"]["()"] == 0.0 and len(result["subset_informations"]) == 1024
+    assert -1.0 <= result["rank_agreement_shapley"] <= 1.0
+    with pytest.raises(SystemExit, match="does not write artifacts"):
+        cli.main([*argv, "--outdir", str(tmp_path)], device="cpu")
+
+
+def test_workload_characterization_prints_its_results(capsys):
+    argv = ["workload", "characterization", "--set", "input_bits_list=(1,)",
+            "--set", "scales=(1.0, 4.0)", "--set", "batch_sizes=(16,)", "--set", "num_repeats=2",
+            "--set", "mc_samples=200"]
+    assert cli.main(argv, device="cpu") == 0
+    results = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["results"]
+    assert [r["channel"]["scale"] for r in results] == [1.0, 4.0]
+    assert all(r["batch_size"] == 16 and r["lower_mean"] <= r["upper_mean"] + 0.02
+               for r in results)
+    with pytest.raises(SystemExit, match="Unknown run_characterization argument"):
+        cli.main(["workload", "characterization", "--set", "device='cuda'"], device="cpu")
 
 
 def test_workload_registers_its_run(tmp_path, monkeypatch):

@@ -14,6 +14,8 @@ scores scaled by 100 and gradients: 1e-4, as the JAX package's flash tests
 hold them, and 2e-2 for bfloat16 inputs; probe bounds 1e-4 nats.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -67,6 +69,9 @@ def _plain(u, mus, logvars, diagonal, groups=25):
     (3, 2, 2, 32, torch.float32, True),            # the diagonal on a tile's edges
     (3, 33, 33, 32, torch.float32, True),
     (4, 300, 300, 64, torch.float32, True),        # widest channel, columns split
+    (20, 1024, 1024, 8, torch.float32, True),      # the radial shells' channels
+    (1, 64, 64, 8, torch.float32, True),           # the characterization's smallest batch
+    (77, 1024, 1024, 32, torch.float32, True),     # mice_protein's 77 channels
 ])
 def test_kernel_matches_plain_version_on_card(cuda_device, g, n, m, d, dtype, diagonal):
     u, mus, logvars = (t.to(dtype) for t in _inputs(cuda_device, g, n, m, d, diagonal))
@@ -81,6 +86,20 @@ def test_kernel_matches_plain_version_on_card(cuda_device, g, n, m, d, dtype, di
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
     if n == 1:
         assert bool((got[2] == density.NEG_INF).all())
+
+
+@pytest.mark.cuda
+def test_kernel_holds_the_boolean_workloads_binary_channels_on_card(cuda_device):
+    """The boolean workload's channels at the start: d = 1, mu = +-1 and
+    logvar -3, so every row is nearly one-hot (the full table, F = 10)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    mus = 2.0 * torch.randint(0, 2, (10, 1024, 1), generator=gen, device=cuda_device) - 1.0
+    logvars = torch.full_like(mus, -3.0)
+    u = mus + torch.randn(mus.shape, generator=gen, device=cuda_device) * math.exp(-1.5)
+    got = density.mi_row_stats(u, mus, logvars)
+    want = _plain(u, mus, logvars, True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL)
 
 
 @pytest.mark.cuda

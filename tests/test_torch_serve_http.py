@@ -335,8 +335,7 @@ def test_serve_parser_keeps_every_jax_flag_or_refuses_it(capsys):
         assert port[action.dest].option_strings == action.option_strings, action.dest
     argv = ["--checkpoint_dir", "ckpt"]
     assert vars(cli.serve_parser().parse_args(argv)) == vars(jax_cli.serve_parser().parse_args(argv))
-    for refused in (["--exec_cache", "8"], ["--dataset", "diabetes"],
-                    ["--infonce_loss", "--sweep_beta_ends", "0.1"]):
+    for refused in (["--exec_cache", "8"], ["--infonce_loss", "--sweep_beta_ends", "0.1"]):
         with pytest.raises(SystemExit) as excinfo:
             cli.serve_parser().parse_args([*argv, *refused])
         assert excinfo.value.code == 2
@@ -344,6 +343,8 @@ def test_serve_parser_keeps_every_jax_flag_or_refuses_it(capsys):
         assert "not ported" in err and ROADMAP in err, err
     accepted = cli.serve_parser().parse_args([*argv, "--telemetry-dir", "", "--exec_cache", "0"])
     assert accepted.telemetry_dir == "" and accepted.exec_cache == 0
+    # every dataset of the JAX registry is ported
+    assert cli.serve_refusal(cli.serve_parser().parse_args([*argv, "--dataset", "diabetes"])) is None
     # the event stream and the run registry are ported: the flags are taken
     accepted = cli.serve_parser().parse_args([*argv, "--telemetry-dir", "events",
                                               "--runs-root", "runs"])
